@@ -1,0 +1,84 @@
+"""Build a CUDA source of this package into a shared library and load it.
+
+Each ``csrc/*.cu`` file exposes a plain C interface, so it compiles with
+``nvcc`` alone in seconds (no PyTorch headers) and binds with ``ctypes``.
+The library goes into ``build/torch_kernels/`` at the root of the
+checkout, named by a hash of the source, the flags, the compiler and the
+card's architecture: a stale build from other source, another compiler
+or another card is never loaded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+# Hopper only: the port targets the H100 (sm_90a keeps wgmma/setmaxnreg
+# available to later kernels)
+_ARCH = {(9, 0): "90a"}
+_FLAGS = ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = pathlib.Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def build_library(source_name: str, device: torch.device) -> ctypes.CDLL:
+    """Compile ``csrc/<source_name>`` for ``device``'s architecture (once
+    per content hash) and load it."""
+    capability = torch.cuda.get_device_capability(device)
+    arch = _ARCH.get(capability)
+    if arch is None:
+        raise RuntimeError(
+            f"no build target for compute capability {capability}; "
+            "the CUDA kernels are written for Hopper (sm_90a)"
+        )
+    nvcc = _nvcc()
+    source = CSRC / source_name
+    version = subprocess.run(
+        [nvcc, "--version"], check=True, capture_output=True, text=True
+    ).stdout
+    gencode = f"-gencode=arch=compute_{arch},code=sm_{arch}"
+    key = hashlib.sha256(
+        source.read_bytes()
+        + " ".join((*_FLAGS, gencode)).encode()
+        + version.encode()
+    ).hexdigest()[:16]
+    out = BUILD_DIR / f"{source.stem}-sm{arch}-{key}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # compile to a private name, then rename: a concurrent build never
+        # sees a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            subprocess.run(
+                [nvcc, gencode, *_FLAGS, "-o", tmp, str(source)],
+                check=True,
+                capture_output=True,
+                text=True,
+            )
+            os.replace(tmp, out)
+        except subprocess.CalledProcessError as err:
+            raise RuntimeError(f"nvcc failed on {source}:\n{err.stderr}") from err
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return ctypes.CDLL(str(out))
