@@ -3,9 +3,12 @@
 Each ``csrc/*.cu`` file exposes a plain C interface, so it compiles with
 ``nvcc`` alone in seconds (no PyTorch headers) and binds with ``ctypes``.
 The library goes into ``build/torch_kernels/`` at the root of the
-checkout, named by a hash of the source, the flags, the compiler and the
-card's architecture: a stale build from other source, another compiler
-or another card is never loaded.
+checkout, named by a hash of the source, every ``csrc/*.cuh`` header it
+may include, the flags, the compiler and the card's architecture: a stale
+build from other source or headers, another compiler or another card is
+never loaded. The compiler's report (``-Xptxas=-v``: registers, shared
+memory and spills of each kernel) is kept beside the library as
+``<name>.log``.
 """
 
 from __future__ import annotations
@@ -26,7 +29,9 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kerne
 # Hopper only: the port targets the H100 (sm_90a keeps wgmma/setmaxnreg
 # available to later kernels)
 _ARCH = {(9, 0): "90a"}
-_FLAGS = ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+_FLAGS = (
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v",
+)
 
 
 def _nvcc() -> str:
@@ -56,11 +61,11 @@ def build_library(source_name: str, device: torch.device) -> ctypes.CDLL:
         [nvcc, "--version"], check=True, capture_output=True, text=True
     ).stdout
     gencode = f"-gencode=arch=compute_{arch},code=sm_{arch}"
-    key = hashlib.sha256(
-        source.read_bytes()
-        + " ".join((*_FLAGS, gencode)).encode()
-        + version.encode()
-    ).hexdigest()[:16]
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join((*_FLAGS, gencode)).encode() + version.encode())
+    key = digest.hexdigest()[:16]
     out = BUILD_DIR / f"{source.stem}-sm{arch}-{key}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -69,12 +74,13 @@ def build_library(source_name: str, device: torch.device) -> ctypes.CDLL:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            subprocess.run(
+            done = subprocess.run(
                 [nvcc, gencode, *_FLAGS, "-o", tmp, str(source)],
                 check=True,
                 capture_output=True,
                 text=True,
             )
+            out.with_suffix(".log").write_text(done.stdout + done.stderr)
             os.replace(tmp, out)
         except subprocess.CalledProcessError as err:
             raise RuntimeError(f"nvcc failed on {source}:\n{err.stderr}") from err

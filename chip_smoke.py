@@ -9,19 +9,31 @@ and the CUDA toolkit:
 Phases, each printing one line:
   1. device: card name and power limit (nvidia-smi), torch/CUDA versions,
      TF32 flags (must be off);
-  2. build: compiles csrc/admm_chunk.cu with nvcc into build/torch_kernels/;
-  3. kernel: the ADMM chunk kernel against its plain PyTorch version on
-     random operators at the horizon-50 shapes (n = 248, m = 398),
-     B in {1, 7, 256}, with and without a mixed ``active`` mask; times;
+  2. build: compiles both kernel sources (csrc/admm_chunk.cu, the cluster
+     kernel, and csrc/admm_chunk_stream.cu, the streaming kernel) side by
+     side with nvcc into build/torch_kernels/, and prints what ptxas
+     reports of each kernel (registers, spills);
+  3. kernel: each variant against the plain PyTorch version on random
+     operators: the cluster kernel at the horizon-50 shapes (n = 248,
+     m = 398), B in {1, 7, 256}, the streaming kernel at the horizon-100
+     shapes (n = 498, m = 798), B in {1, 8}, each with and without a mixed
+     ``active`` mask; times, the streaming kernel at the horizon-50 shapes
+     as the figure before the cluster design, the cluster sizes C in
+     {5, 6, 8} at B = 256 and {8, 16} at B = 1, and for every C that fits,
+     its shared bytes per CTA and how many such clusters the card holds;
   4. main path: monza racing config, horizon 50, B = 256 windows of a
      difficulty ramp through ``SpatialMPC.batched_get_control_fused``:
      one cold step with converged-scenario skipping on, then five
-     warm-started steps; every scenario must solve, both kernel variants
-     must have launched, and 8 scenarios must agree with the plain path
-     on the CPU;
+     warm-started steps; every scenario must solve, both cluster kernel
+     variants must have launched, and 8 scenarios must agree with the
+     plain path on the CPU;
   5. single entry: ``SpatialMPC.get_control`` (B = 1) on the 7 tracks x 5
-     golden windows against tests/fixtures/golden_controls.npz, and the
-     warm-started B = 1 step time.
+     golden windows against tests/fixtures/golden_controls.npz (through
+     the cluster kernel), and the warm-started B = 1 step time;
+  6. mapping control: monza's mapping config (horizon 100), B = 8 gentle
+     windows of the ramp: one cold step with skipping on and one warm
+     step, all solved, through both streaming kernel variants; 2
+     scenarios agree with the plain path on the CPU.
 Then the kernels line, the card line and, last, the result line. Any
 failure raises and the exit code is not 0. Without a CUDA device it
 exits with code 2 and prints no result.
@@ -42,6 +54,11 @@ ROOT = pathlib.Path(__file__).resolve().parent
 DEVICE = "cuda"
 HORIZON = 50
 BATCH = 256
+# chunk shapes: horizon 50 (racing) and horizon 100 (mapping)
+H50 = (248, 398)
+H100 = (498, 798)
+MAPPING_BATCH = 8
+N_ITERS, ALPHA = 25, 1.6
 TRACKS = [
     "monza", "spa", "silverstone", "nordschleife",
     "vallelunga", "bathurst", "yas_marina",
@@ -156,61 +173,118 @@ def phase_device() -> dict:
 def phase_build() -> dict:
     import torch
 
-    import acmpc_tpu_torch.ops.admm_chunk as mod
+    import acmpc_tpu_torch.ops.admm_chunk as ops
+    from acmpc_tpu_torch.ops.cuda_build import BUILD_DIR
 
     t0 = time.perf_counter()
-    mod._library(torch.cuda.current_device())
-    info = {"kernel": "admm_chunk.cu", "build_s": time.perf_counter() - t0}
+    ops._libraries(torch.cuda.current_device())
+    info = {"sources": sorted(ops.SOURCES.values()), "build_s": time.perf_counter() - t0}
+    # what ptxas said of each kernel built in this run
+    for log in sorted(BUILD_DIR.glob("*.log")):
+        if log.stat().st_mtime >= time.time() - info["build_s"] - 5:
+            info[log.stem] = [
+                line.split("ptxas info    : ", 1)[-1]
+                for line in log.read_text().splitlines()
+                if "Used" in line or "spill" in line
+            ]
     emit("phase 2 build", info)
     return info
 
 
-def phase_kernel() -> dict:
-    """The kernel against its plain version on the card."""
+def compare(got, want, label: str) -> float:
+    """Max abs difference of kernel outputs from the plain version's;
+    raises unless finite and within KERNEL_RTOL of the iterates' scale."""
     import torch
 
-    from acmpc_tpu_torch.ops.admm_chunk import admm_chunk, admm_chunk_reference
+    torch.cuda.synchronize()
+    scale = max(1.0, max(float(w.abs().max()) for w in want))
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    if not all(bool(torch.isfinite(a).all()) for a in got):
+        raise RuntimeError(f"{label}: kernel output not finite")
+    if err > KERNEL_RTOL * scale:
+        raise RuntimeError(
+            f"{label}: kernel disagrees with its plain version: "
+            f"max abs err {err} > {KERNEL_RTOL} * {scale}"
+        )
+    return err
 
-    n, m, n_iters, alpha = 248, 398, 25, 1.6
-    results = {}
-    for batch in (1, 7, BATCH):
-        inputs = random_chunk_inputs(batch, n, m, seed=batch, device=DEVICE)
-        active = torch.arange(batch, device=DEVICE) % 3 != 1
-        for masked in (False, True):
-            mask = active if masked else None
-            got = admm_chunk(*inputs, n_iters=n_iters, alpha=alpha, active=mask)
-            want = admm_chunk_reference(*inputs, n_iters=n_iters, alpha=alpha, active=mask)
-            torch.cuda.synchronize()
-            scale = max(1.0, max(float(w.abs().max()) for w in want))
-            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-            if not all(bool(torch.isfinite(a).all()) for a in got):
-                raise RuntimeError(f"kernel output not finite at B={batch}")
-            if err > KERNEL_RTOL * scale:
-                raise RuntimeError(
-                    f"kernel disagrees with its plain version at B={batch}, "
-                    f"masked={masked}: max abs err {err} > {KERNEL_RTOL} * {scale}"
-                )
-            key = f"B{batch}{'_active' if masked else ''}"
-            row = {"max_abs_err": err, "max_rel_err": err / scale}
-            if batch in (1, BATCH):
-                row["ms"] = time_cuda_ms(
-                    lambda: admm_chunk(*inputs, n_iters=n_iters, alpha=alpha, active=mask),
-                    reps=20,
-                )
-                row["plain_ms"] = time_cuda_ms(
-                    lambda: admm_chunk_reference(*inputs, n_iters=n_iters, alpha=alpha, active=mask),
-                    reps=5,
-                )
-                n_active = int(active.sum()) if masked else batch
-                row["bound_ms"], row["bound_by"] = chunk_bound(
-                    n, m, n_iters, n_active, batch, masked
-                )
-                # the design streams W and A from HBM every iteration
-                row["streaming_bound_ms"] = 1e3 * n_iters * n_active * 4 * (
-                    n * (n + m) + m * n
-                ) / HBM_BYTES_PER_S
-            results[key] = row
-    emit("phase 3 kernel vs plain", {"n": n, "m": m, "n_iters": n_iters, **results})
+
+def phase_kernel() -> dict:
+    """Both kernel variants against their plain version on the card, with
+    times, the cluster-size sweep and the streaming kernel's figure at
+    the horizon-50 shapes."""
+    import torch
+
+    import acmpc_tpu_torch.ops.admm_chunk as ops
+
+    dev = torch.cuda.current_device()
+    lib = ops._libraries(dev)["cluster"]
+    n, m = H50
+    clusters = {}
+    for C in range(1, ops.MAX_CLUSTER + 1):
+        smem = ops.cluster_smem_bytes(n, m, C)
+        if lib.admm_chunk_cluster_smem_bytes(n, m, C) != smem:
+            raise RuntimeError(f"C={C}: the wrapper's shared-memory layout is not the kernel's")
+        if smem <= ops.SMEM_PER_BLOCK:
+            clusters[C] = {
+                "smem_bytes": smem,
+                "max_active_clusters": ops.cluster_max_active(n, m, C, dev),
+            }
+    stream_plan = ops.ChunkPlan("stream", 1, ops.stream_smem_bytes(n, m))
+    sweep = {1: (8, 16), BATCH: (5, 6, 8)}
+
+    results = {"clusters_h50": clusters}
+    for (n, m), batches in ((H50, (1, 7, BATCH)), (H100, (1, MAPPING_BATCH))):
+        for batch in batches:
+            inputs = random_chunk_inputs(batch, n, m, seed=batch, device=DEVICE)
+            active = torch.arange(batch, device=DEVICE) % 3 != 1
+            plan = ops.plan_chunk(n, m, batch)
+            timed = (n, m) == H50 and batch in (1, BATCH) or (n, m) == H100 and batch == MAPPING_BATCH
+            for masked in (False, True):
+                mask = active if masked else None
+                key = f"n{n}_B{batch}{'_active' if masked else ''}"
+
+                def run(p=plan, mask=mask):
+                    return ops._launch(p, *inputs, n_iters=N_ITERS, alpha=ALPHA, active=mask)
+
+                def plain(mask=mask):
+                    return ops.admm_chunk_reference(*inputs, n_iters=N_ITERS, alpha=ALPHA, active=mask)
+
+                want = plain()
+                ops.admm_chunk.launches.clear()
+                got = ops.admm_chunk(*inputs, n_iters=N_ITERS, alpha=ALPHA, active=mask)
+                name = ops.CLUSTER if plan.variant == "cluster" else ops.STREAM
+                name = f"{name}[active]" if masked else name
+                if dict(ops.admm_chunk.launches) != {name: 1}:
+                    raise RuntimeError(f"{key}: expected one launch of {name}, got {dict(ops.admm_chunk.launches)}")
+                row = {
+                    "kernel": name,
+                    "C": plan.cluster,
+                    "max_abs_err": compare(got, want, key),
+                }
+                if timed:
+                    row["ms"] = time_cuda_ms(run, reps=20)
+                    row["plain_ms"] = time_cuda_ms(plain, reps=5)
+                    n_active = int(active.sum()) if masked else batch
+                    row["bound_ms"], row["bound_by"] = chunk_bound(
+                        n, m, N_ITERS, n_active, batch, masked
+                    )
+                if timed and (n, m) == H50:
+                    # the streaming kernel on the same inputs: the figure
+                    # before the cluster design
+                    row["stream_max_abs_err"] = compare(run(stream_plan), want, f"{key} stream")
+                    row["stream_ms"] = time_cuda_ms(lambda: run(stream_plan), reps=20)
+                    row["streaming_bound_ms"] = 1e3 * N_ITERS * n_active * 4 * (
+                        n * (n + m) + m * n
+                    ) / HBM_BYTES_PER_S
+                    if not masked:
+                        row["ms_by_C"] = {}
+                        for C in sweep[batch]:
+                            p = ops.ChunkPlan("cluster", C, ops.cluster_smem_bytes(n, m, C))
+                            compare(run(p), want, f"{key} C={C}")
+                            row["ms_by_C"][C] = time_cuda_ms(lambda: run(p), reps=20)
+                results[key] = row
+    emit("phase 3 kernel vs plain", {"n_iters": N_ITERS, **results})
     return results
 
 
@@ -234,13 +308,18 @@ def difficulty_ramp(horizon: int, batch: int) -> np.ndarray:
     return np.stack(windows).astype(np.float32)
 
 
-def make_mpc(track: str, device):
+def make_mpc(track: str, device, mode: str = "racing"):
+    """The track's racing control cut to horizon 50, or its mapping
+    control as configured (horizon 100)."""
     from acmpc_tpu_torch.config import load_config
     from acmpc_tpu_torch.dynamics import SpatialBicycleModel
     from acmpc_tpu_torch.mpc.spatial_mpc import SpatialMPC
 
     cfg = load_config(ROOT / "configs" / f"{track}.yaml")
-    control = dataclasses.replace(cfg.racing_control, horizon=HORIZON)
+    if mode == "racing":
+        control = dataclasses.replace(cfg.racing_control, horizon=HORIZON)
+    else:
+        control = cfg.mapping_control
     model = SpatialBicycleModel(
         vehicle=cfg.vehicle,
         min_velocity=control.constraints.v_min,
@@ -252,7 +331,7 @@ def make_mpc(track: str, device):
 def phase_main_path() -> dict:
     import torch
 
-    from acmpc_tpu_torch.ops.admm_chunk import KERNEL, KERNEL_ACTIVE, admm_chunk
+    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER, CLUSTER_ACTIVE, admm_chunk
 
     mpc = make_mpc("monza", DEVICE)
     skipping = make_mpc("monza", DEVICE)
@@ -283,7 +362,7 @@ def phase_main_path() -> dict:
                 raise RuntimeError(f"main path step {i}: {f.name} not finite")
     if steps[-1].projected_control.shape != (BATCH, 2, HORIZON - 1):
         raise RuntimeError(f"bad command shape {tuple(steps[-1].projected_control.shape)}")
-    for name in (KERNEL, KERNEL_ACTIVE):
+    for name in (CLUSTER, CLUSTER_ACTIVE):
         if launches.get(name, 0) == 0:
             raise RuntimeError(f"main path never launched {name}")
 
@@ -322,7 +401,7 @@ def phase_single_golden() -> dict:
     import torch
 
     from acmpc_tpu_torch.geometry.tracks import battery
-    from acmpc_tpu_torch.ops.admm_chunk import KERNEL, admm_chunk
+    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER, admm_chunk
 
     golden = np.load(ROOT / "tests" / "fixtures" / "golden_controls.npz")
     windows = battery(HORIZON)
@@ -345,9 +424,9 @@ def phase_single_golden() -> dict:
                     got, want, rtol=GOLDEN_TOL, atol=GOLDEN_TOL, err_msg=key
                 )
                 worst = max(worst, float(np.abs(got - want).max()))
-    golden_launches = admm_chunk.launches[KERNEL]
+    golden_launches = admm_chunk.launches[CLUSTER]
     if golden_launches == 0:
-        raise RuntimeError("get_control never launched the kernel")
+        raise RuntimeError(f"get_control never launched {CLUSTER}")
 
     # warm-started single-scenario step (the flagship entry's counterpart)
     mpc = make_mpc("monza", DEVICE)
@@ -376,17 +455,80 @@ def phase_single_golden() -> dict:
     return info
 
 
-def kernels_line(kernel: dict, main: dict) -> dict:
-    from acmpc_tpu_torch.ops.admm_chunk import KERNEL, KERNEL_ACTIVE
+def phase_mapping() -> dict:
+    """Monza's mapping control (horizon 100), whose operator no cluster
+    holds: a cold step with skipping on, then a warm step."""
+    import torch
 
-    def row(name, key, line):
+    from acmpc_tpu_torch.ops.admm_chunk import STREAM, STREAM_ACTIVE, admm_chunk
+
+    mpc = make_mpc("monza", DEVICE, mode="mapping")
+    skipping = make_mpc("monza", DEVICE, mode="mapping")
+    skipping.admm = dataclasses.replace(skipping.admm, tile_skip=True)
+    horizon = mpc.config.horizon
+    # the gentlest windows of the ramp
+    refs = torch.as_tensor(difficulty_ramp(horizon, BATCH)[:MAPPING_BATCH], device=DEVICE)
+
+    admm_chunk.launches.clear()
+    cold, _ = skipping.batched_get_control_fused(mpc.initial_state(MAPPING_BATCH), refs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm, _ = mpc.batched_get_control_fused(cold, refs)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    launches = dict(admm_chunk.launches)
+
+    for i, s in enumerate((cold, warm)):
+        if not bool(s.solved.all()):
+            raise RuntimeError(
+                f"mapping step {i}: {int((~s.solved).sum())} of {MAPPING_BATCH} unsolved"
+            )
+        if not bool(torch.isfinite(s.projected_control).all()):
+            raise RuntimeError(f"mapping step {i}: commands not finite")
+    if warm.projected_control.shape != (MAPPING_BATCH, 2, horizon - 1):
+        raise RuntimeError(f"bad command shape {tuple(warm.projected_control.shape)}")
+    for name in (STREAM, STREAM_ACTIVE):
+        if launches.get(name, 0) == 0:
+            raise RuntimeError(f"mapping control never launched {name}")
+
+    pick = torch.tensor([0, MAPPING_BATCH - 1])
+    cpu_mpc = make_mpc("monza", "cpu", mode="mapping")
+    cpu_state, _ = cpu_mpc.batched_get_control_fused(
+        cpu_mpc.initial_state(len(pick)), refs[pick].cpu()
+    )
+    cpu_err = float(
+        (cpu_state.projected_control - cold.projected_control[pick].cpu()).abs().max()
+    )
+    if not bool(cpu_state.solved.all()) or cpu_err > CPU_AGREE_TOL:
+        raise RuntimeError(f"mapping: card and CPU paths disagree: max abs err {cpu_err}")
+    info = {
+        "config": f"monza mapping, horizon {horizon}",
+        "batch": MAPPING_BATCH,
+        "solved_per_step": [int(s.solved.sum()) for s in (cold, warm)],
+        "launches": launches,
+        "warm_step_ms": 1e3 * warm_s,
+        "cpu_plain_max_abs_err": cpu_err,
+        "card": card_line(),
+    }
+    emit("phase 6 mapping control", info)
+    return info
+
+
+def kernels_line(kernel: dict, main: dict, mapping: dict) -> dict:
+    """One row per kernel variant: launches from the path that runs it
+    (cluster: phase 4; stream: phase 6), numbers from phase 3 at that
+    path's shapes."""
+    import acmpc_tpu_torch.ops.admm_chunk as ops
+
+    def row(name, key, line, path):
         r = kernel[key]
+        source = ops.SOURCES["cluster" if name.startswith(ops.CLUSTER) else "stream"]
         return {
             "name": name,
             "route": "cuda",
-            "source": "acmpc_tpu_torch/csrc/admm_chunk.cu",
+            "source": f"acmpc_tpu_torch/csrc/{source}",
             "replaces": f"acmpc_tpu/ops/pallas_admm.py:{line}",
-            "launches": main["launches"].get(name, 0),
+            "launches": path["launches"].get(name, 0),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -395,10 +537,13 @@ def kernels_line(kernel: dict, main: dict) -> dict:
             "library_ms": None,
         }
 
+    n50, n100 = H50[0], H100[0]
     return {
         "kernels": [
-            row(KERNEL, f"B{BATCH}", 99),
-            row(KERNEL_ACTIVE, f"B{BATCH}_active", 103),
+            row(ops.CLUSTER, f"n{n50}_B{BATCH}", 99, main),
+            row(ops.CLUSTER_ACTIVE, f"n{n50}_B{BATCH}_active", 103, main),
+            row(ops.STREAM, f"n{n100}_B{MAPPING_BATCH}", 99, mapping),
+            row(ops.STREAM_ACTIVE, f"n{n100}_B{MAPPING_BATCH}_active", 103, mapping),
         ]
     }
 
@@ -418,7 +563,8 @@ def main() -> int:
     kernel = phase_kernel()
     main_info = phase_main_path()
     phase_single_golden()
-    print(json.dumps(kernels_line(kernel, main_info)))
+    mapping = phase_mapping()
+    print(json.dumps(kernels_line(kernel, main_info, mapping)))
     print(card_line())
     print(json.dumps({
         "ok": True,

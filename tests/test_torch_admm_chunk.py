@@ -10,10 +10,14 @@ import torch
 
 from acmpc_tpu.ops.pallas_admm import admm_iterations_pallas
 from acmpc_tpu_torch.ops.admm_chunk import (
-    KERNEL,
-    KERNEL_ACTIVE,
+    KERNEL_NAMES,
+    MAX_CLUSTER,
+    SMEM_PER_BLOCK,
     admm_chunk,
     admm_chunk_reference,
+    cluster_smem_bytes,
+    plan_chunk,
+    stream_smem_bytes,
 )
 
 N, M, ITERS, ALPHA = 20, 30, 25, 1.6
@@ -147,5 +151,71 @@ def test_no_silent_fallback_off_cpu():
 
 def test_cpu_path_counts_no_launch():
     admm_chunk.launches.clear()
-    admm_chunk(*_args(_inputs(1, seed=5)), n_iters=2, alpha=ALPHA)
-    assert admm_chunk.launches[KERNEL] == admm_chunk.launches[KERNEL_ACTIVE] == 0
+    args = _args(_inputs(3, seed=5))
+    admm_chunk(*args, n_iters=2, alpha=ALPHA)
+    admm_chunk(*args, n_iters=2, alpha=ALPHA, active=torch.tensor([True, False, True]))
+    assert len(KERNEL_NAMES) == 4
+    assert all(admm_chunk.launches[name] == 0 for name in KERNEL_NAMES)
+    assert sum(admm_chunk.launches.values()) == 0
+
+
+def _control_shape(horizon):
+    """(n, m) of the control QP at a horizon: 5h - 2 variables, 8h - 2
+    constraints (248 and 398 at horizon 50)."""
+    return 5 * horizon - 2, 8 * horizon - 2
+
+
+@pytest.mark.parametrize("batch", [1, 7, 15, 16, 256])
+def test_plan_horizon50_takes_cluster(batch):
+    n, m = _control_shape(50)
+    plan = plan_chunk(n, m, batch)
+    assert plan.variant == "cluster"
+    assert plan.smem_bytes == cluster_smem_bytes(n, m, plan.cluster) <= SMEM_PER_BLOCK
+    # the fewest CTAs that fit when the batch fills the card, at least 8
+    # when 8-CTA clusters hold the whole batch at once
+    assert plan.cluster == (8 if batch <= 15 else 5)
+
+
+def test_plan_cluster_sizes_at_horizon50():
+    n, m = _control_shape(50)
+    # 50 + 80 rows of 2,584 and 992 bytes, the vectors and 4 mbarriers
+    assert cluster_smem_bytes(n, m, 5) == 214_520
+    assert cluster_smem_bytes(n, m, 4) > SMEM_PER_BLOCK
+    sizes = [cluster_smem_bytes(n, m, C) for C in range(1, MAX_CLUSTER + 1)]
+    assert sizes == sorted(sizes, reverse=True)
+
+
+@pytest.mark.parametrize("batch", [1, 8, 256])
+def test_plan_horizon100_takes_stream(batch):
+    # the mapping control: a 4.17 MB operator, above 16 x 227 KB
+    n, m = _control_shape(100)
+    assert cluster_smem_bytes(n, m, MAX_CLUSTER) > SMEM_PER_BLOCK
+    plan = plan_chunk(n, m, batch)
+    assert plan == type(plan)("stream", 1, stream_smem_bytes(n, m))
+
+
+def test_plan_largest_cluster_shape():
+    # the longest horizon whose operator a 16-CTA cluster still holds
+    horizons = [h for h in range(2, 200) if plan_chunk(*_control_shape(h), 1).variant == "cluster"]
+    largest = max(horizons)
+    assert horizons == list(range(2, largest + 1))
+    plan = plan_chunk(*_control_shape(largest), 1)
+    assert plan.cluster == MAX_CLUSTER and plan.smem_bytes <= SMEM_PER_BLOCK
+    assert plan_chunk(*_control_shape(largest + 1), 1).variant == "stream"
+
+
+def test_plan_depends_on_shapes_only():
+    # B = 0 and tiny shapes still plan; the same inputs, the same plan
+    assert plan_chunk(248, 398, 0) == plan_chunk(248, 398, 1)
+    assert plan_chunk(N, M, 3).variant == "cluster"
+    assert plan_chunk(N, M, 300).cluster == 1
+
+
+def test_empty_batch_and_zero_iterations():
+    args = [a[:0] for a in _args(_inputs(1, seed=6))]
+    out = admm_chunk(*args, n_iters=ITERS, alpha=ALPHA)
+    assert [tuple(o.shape) for o in out] == [(0, N), (0, M), (0, M)]
+    inp = _inputs(3, seed=7)
+    got = admm_chunk(*_args(inp), n_iters=0, alpha=ALPHA, active=torch.tensor([True, False, True]))
+    for g, k in zip(got, ("x", "z", "y")):
+        np.testing.assert_array_equal(g.numpy(), inp[k])
