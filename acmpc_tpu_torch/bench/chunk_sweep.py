@@ -11,7 +11,11 @@ to 50 iterations) and ``fixed_ms`` (the chunk at 0 iterations: launch,
 the operator load of the cluster kernel, and the copies in and out).
 Horizon 50 (n = 248, m = 398): the cluster kernel at C in {5, 6, 8, 16}
 and the streaming kernel, B in {1, 7, 256}; horizon 100 (n = 498,
-m = 798): the streaming kernel, B in {1, 8}. Needs a CUDA device.
+m = 798): the split kernel at every C from 8 to 16 with the default ring
+(4 stages of 8 KB), other rings at C = 16 (``split_C16_S{stages}_{bytes}``),
+and the streaming kernel, B in {1, 8}. Each split row also gives its
+resident rows, the bytes each CTA streams per iteration and how many of
+its clusters the card holds at once. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 COUNTS = (0, 25, 50)
+# split-kernel rings tried at C = 16 beside the default: (stages, bytes)
+RINGS = ((2, 8192), (8, 8192), (2, 16384), (4, 16384), (8, 4096))
 
 
 def main() -> int:
@@ -41,8 +47,22 @@ def main() -> int:
             for C in (5, 6, 8, 16)
             if ops.cluster_smem_bytes(n, m, C) <= ops.SMEM_PER_BLOCK
         }
+        if not out:
+            out = {f"split_C{C}": ops.split_plan(n, m, C) for C in range(8, 17)}
+            for stages, size in RINGS:
+                out[f"split_C16_S{stages}_{size}"] = ops.split_plan(n, m, 16, stages, size)
         out["stream"] = ops.ChunkPlan("stream", 1, ops.stream_smem_bytes(n, m))
         return out
+
+    def split_facts(n, m, plan):
+        lay = ops.split_layout(n, m, plan.cluster, plan.stages, plan.stage_bytes)
+        streamed = (lay.rows_w - lay.res_w) * (n + m) + (lay.rows_a - lay.res_a) * n
+        return {
+            "resident_rows_w_a": [lay.res_w, lay.res_a],
+            "rows_w_a": [lay.rows_w, lay.rows_a],
+            "streamed_bytes_per_cta_iter": 4 * streamed,
+            "max_active_clusters": ops.max_active_clusters(plan, n, m, 0),
+        }
 
     rows = []
     for (n, m), batches in ((H50, (1, 7, 256)), (H100, (1, 8))):
@@ -61,6 +81,7 @@ def main() -> int:
                     "ms": ms,
                     "us_per_iter": 1e3 * (ms[50] - ms[25]) / 25,
                     "fixed_ms": ms[0],
+                    **(split_facts(n, m, plan) if plan.variant == "split" else {}),
                 })
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -60,6 +60,29 @@ def _layers(mpc, states, refs):
     return new, diags, seconds
 
 
+def device_time(prof):
+    """Device-side events of a ``torch.profiler`` run (kernels, copies,
+    sets; CPU ops and record_function ranges also carry device time and
+    would count twice): the busy microseconds, the union of their
+    intervals, and {name: [microseconds, count]}."""
+    per_kernel: dict[str, list] = {}
+    intervals = []
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = evt.time_range.start, evt.time_range.end
+        intervals.append((start, end))
+        row = per_kernel.setdefault(evt.name, [0.0, 0])
+        row[0] += end - start
+        row[1] += 1
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    return busy_us, per_kernel
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch", type=int, default=256)
@@ -98,23 +121,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
 
-    # device-side events only (kernels, copies, sets): CPU ops and the
-    # record_function ranges also carry device time and would count twice
-    per_kernel: dict[str, list] = {}
-    intervals = []
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        start, end = evt.time_range.start, evt.time_range.end
-        intervals.append((start, end))
-        row = per_kernel.setdefault(evt.name, [0.0, 0])
-        row[0] += end - start
-        row[1] += 1
-    busy_us, reach = 0.0, float("-inf")
-    for start, end in sorted(intervals):  # union of the device intervals
-        if end > reach:
-            busy_us += end - max(start, reach)
-            reach = end
+    busy_us, per_kernel = device_time(prof)
     kernels = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

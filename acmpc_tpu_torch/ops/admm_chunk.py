@@ -18,15 +18,20 @@ c0 and x (B, n), rho, l, u, z and y (B, m), all fp32 and contiguous.
 others pass x, z, y through unchanged (the port of
 ``_admm_kernel_active``, per scenario instead of per tile).
 
-Two CUDA kernels compute it, chosen by :func:`plan_chunk` from (n, m, B)
-before launch:
+Three CUDA kernels compute it; :func:`plan_chunk` picks one of the first
+two from (n, m, B) before launch:
 
 * ``cluster`` (``csrc/admm_chunk.cu``): one thread-block cluster of C
   CTAs per scenario, the operator held in the cluster's shared memory for
   the whole chunk;
+* ``split`` (``csrc/admm_chunk_split.cu``): for operators that no cluster
+  holds whole (horizons above 92, the mapping control at horizon 100): a
+  cluster of C CTAs per scenario keeps as many rows as fit in shared
+  memory and streams the rest from L2 every iteration through a ring of
+  shared-memory stages;
 * ``stream`` (``csrc/admm_chunk_stream.cu``): one block per scenario, W
-  and A read from global memory every iteration; for operators that no
-  cluster can hold (the mapping control at horizon 100).
+  and A read from global memory every iteration. No plan picks it; it is
+  kept as the figure the split kernel is measured against.
 
 CPU tensors go to :func:`admm_chunk_reference`; CUDA tensors go to the
 planned kernel, and a refused launch raises.
@@ -46,10 +51,16 @@ from acmpc_tpu_torch.ops.cuda_build import build_library
 
 CLUSTER = "admm_chunk_cluster"
 CLUSTER_ACTIVE = "admm_chunk_cluster[active]"
+SPLIT = "admm_chunk_split"
+SPLIT_ACTIVE = "admm_chunk_split[active]"
 STREAM = "admm_chunk_stream"
 STREAM_ACTIVE = "admm_chunk_stream[active]"
-KERNEL_NAMES = (CLUSTER, CLUSTER_ACTIVE, STREAM, STREAM_ACTIVE)
-SOURCES = {"cluster": "admm_chunk.cu", "stream": "admm_chunk_stream.cu"}
+KERNEL_NAMES = (CLUSTER, CLUSTER_ACTIVE, SPLIT, SPLIT_ACTIVE, STREAM, STREAM_ACTIVE)
+SOURCES = {
+    "cluster": "admm_chunk.cu",
+    "split": "admm_chunk_split.cu",
+    "stream": "admm_chunk_stream.cu",
+}
 
 # H100: shared memory one block may use, and the largest cluster (above
 # 8 CTAs only with the non-portable opt-in)
@@ -58,6 +69,12 @@ MAX_CLUSTER = 16
 # clusters of 8 CTAs that an H100 holds at once (its GPCs; measured with
 # cudaOccupancyMaxActiveClusters by chip_smoke.py phase 3)
 CLUSTERS_OF_8 = 15
+# consumer warps of a cluster or split CTA (csrc/admm_chunk_common.cuh)
+WARPS = 16
+# the split kernel's ring: stages, and bytes of one stage (raised to one
+# W row where that is longer)
+SPLIT_STAGES = 4
+SPLIT_STAGE_BYTES = 8192
 
 
 def admm_chunk_reference(W, A, c0, rho, l, u, x, z, y, n_iters, alpha, active=None):
@@ -83,6 +100,10 @@ def admm_chunk_reference(W, A, c0, rho, l, u, x, z, y, n_iters, alpha, active=No
     return x, z, y
 
 
+def _round4(v: int) -> int:
+    return (v + 3) & ~3
+
+
 def cluster_smem_bytes(n: int, m: int, C: int) -> int:
     """Dynamic shared memory of one CTA of the cluster kernel with C CTAs
     per scenario (the layout of ``csrc/admm_chunk.cu``): four mbarriers
@@ -90,19 +111,81 @@ def cluster_smem_bytes(n: int, m: int, C: int) -> int:
     for its alignment shift and rounded to 4 floats; the full [x; w] and
     xt; c0 and x of its W rows; z, y, rho, 1/rho, l, u of its A rows."""
 
-    def round4(v):
-        return (v + 3) & ~3
-
     rows_w, rows_a = -(-n // C), -(-m // C)
     floats = (
-        round4(rows_w * (n + m) + 3)
-        + round4(rows_a * n + 3)
+        _round4(rows_w * (n + m) + 3)
+        + _round4(rows_a * n + 3)
         + (n + m)
         + n
         + 2 * rows_w
         + 6 * rows_a
     )
     return 32 + 4 * floats
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitLayout:
+    rows_w: int  # W rows per CTA (the last CTAs may hold fewer)
+    rows_a: int  # A rows per CTA
+    res_w: int  # of those, rows held in shared memory
+    res_a: int
+    stage_floats: int  # one ring stage
+    per_stage_w: int  # whole W rows in one stage
+    per_stage_a: int  # whole A rows in one stage
+    bytes: int  # dynamic shared memory per CTA
+
+
+@functools.lru_cache(maxsize=None)
+def split_layout(
+    n: int, m: int, C: int, stages: int = SPLIT_STAGES, stage_bytes: int = SPLIT_STAGE_BYTES
+) -> SplitLayout:
+    """The split kernel's layout (``csrc/admm_chunk_split.cu``) with C
+    CTAs per scenario and a ring of ``stages`` stages: 4 + 2 * stages
+    mbarriers and a fill number per stage, 8 bytes each and rounded to 16
+    bytes; the resident W and A rows, each region with 3 floats of
+    room for its alignment shift and rounded to 4 floats; the ring; an
+    edge table of 8 floats per streamed stage; the vectors of the cluster
+    kernel. The most resident rows that fit in SMEM_PER_BLOCK: all, then
+    one A row fewer at a time, then one W row fewer at a time; ``bytes``
+    is above SMEM_PER_BLOCK where not even the vectors and the ring fit.
+    The rows of each slice after the resident ones stream, ``per_stage_*``
+    to a stage."""
+    k_w = n + m
+    rows_w, rows_a = -(-n // C), -(-m // C)
+    stage_floats = _round4(max(stage_bytes // 4, k_w + 3))
+    per_w = min(WARPS, (stage_floats - 3) // k_w)
+    per_a = min(WARPS, (stage_floats - 3) // n)
+
+    def size(res_w, res_a):
+        streamed = -(-(rows_w - res_w) // per_w) + -(-(rows_a - res_a) // per_a)
+        floats = (
+            _round4(res_w * k_w + 3)
+            + _round4(res_a * n + 3)
+            + stages * stage_floats
+            + 8 * streamed
+            + k_w
+            + n
+            + 2 * rows_w
+            + 6 * rows_a
+        )
+        return (8 * (4 + 3 * stages) + 15) // 16 * 16 + 4 * floats
+
+    res_w, res_a = rows_w, rows_a
+    while size(res_w, res_a) > SMEM_PER_BLOCK and (res_a > 0 or res_w > 0):
+        if res_a > 0:
+            res_a -= 1
+        else:
+            res_w -= 1
+    return SplitLayout(
+        rows_w, rows_a, res_w, res_a, stage_floats, per_w, per_a, size(res_w, res_a)
+    )
+
+
+def split_smem_bytes(
+    n: int, m: int, C: int, stages: int = SPLIT_STAGES, stage_bytes: int = SPLIT_STAGE_BYTES
+) -> int:
+    """Dynamic shared memory of one CTA of the split kernel."""
+    return split_layout(n, m, C, stages, stage_bytes).bytes
 
 
 def stream_smem_bytes(n: int, m: int) -> int:
@@ -113,9 +196,19 @@ def stream_smem_bytes(n: int, m: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class ChunkPlan:
-    variant: str  # "cluster" or "stream"
+    variant: str  # "cluster", "split" or "stream"
     cluster: int  # CTAs per scenario; 1 for "stream"
     smem_bytes: int  # dynamic shared memory per CTA
+    stages: int = 0  # "split": ring stages
+    stage_bytes: int = 0  # "split": bytes of one stage
+
+
+def split_plan(
+    n: int, m: int, C: int, stages: int = SPLIT_STAGES, stage_bytes: int = SPLIT_STAGE_BYTES
+) -> ChunkPlan:
+    return ChunkPlan(
+        "split", C, split_smem_bytes(n, m, C, stages, stage_bytes), stages, stage_bytes
+    )
 
 
 def plan_chunk(n: int, m: int, B: int) -> ChunkPlan:
@@ -126,13 +219,24 @@ def plan_chunk(n: int, m: int, B: int) -> ChunkPlan:
     in one wave, at least 8 CTAs, to spread each scenario's chain over
     more SMs (16 CTAs measured within 10% of 8 at B = 1 and B = 7, and
     the card holds fewer than half as many at once). Shapes that no
-    cluster of 16 holds take the streaming kernel."""
+    cluster of 16 holds take the split kernel with 16 CTAs and its
+    default ring (4 stages of 8 KB): at horizon 100 each CTA then streams
+    76 KB per iteration, against 339 KB at C = 8. Measured on an H100
+    (bench/chunk_sweep.py): C = 16 iterates in 6.3 us at B = 1 and
+    12.6 us at B = 8, where the card holds 7 of its clusters at once and
+    so runs two waves; C = 8 holds 15 clusters at once, runs B = 8 in one
+    wave, and iterates in 20.8 us at either B; every C from 9 to 15 lies
+    between them. Rings of 2 x 16 KB were within 2%, 2 x 8 KB, 8 x 8 KB
+    and 4 x 16 KB 5-13% slower, 8 x 4 KB 1.9x slower."""
     fitting = [
         C for C in range(1, MAX_CLUSTER + 1)
         if cluster_smem_bytes(n, m, C) <= SMEM_PER_BLOCK
     ]
     if not fitting:
-        return ChunkPlan("stream", 1, stream_smem_bytes(n, m))
+        plan = split_plan(n, m, MAX_CLUSTER)
+        if plan.smem_bytes > SMEM_PER_BLOCK:
+            raise ValueError(f"no chunk kernel takes n={n}, m={m}: the vectors do not fit")
+        return plan
     C = fitting[0]
     if B <= CLUSTERS_OF_8:
         C = max(C, 8)
@@ -142,13 +246,14 @@ def plan_chunk(n: int, m: int, B: int) -> ChunkPlan:
 _PTR = ctypes.c_void_p
 _LAUNCH_TAIL = {
     "cluster": [ctypes.c_int] * 5,  # B, n, m, C, n_iters
+    "split": [ctypes.c_int] * 7,  # B, n, m, C, stages, stage_bytes, n_iters
     "stream": [ctypes.c_int] * 4,  # B, n, m, n_iters
 }
 
 
 @functools.lru_cache(maxsize=None)
 def _libraries(device_index: int) -> dict:
-    """Both kernels' libraries for one card, built side by side."""
+    """The kernels' libraries for one card, built side by side."""
     device = torch.device("cuda", device_index)
     with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
         futures = {
@@ -163,25 +268,40 @@ def _libraries(device_index: int) -> dict:
             _PTR,  # stream
         ]
         fn.restype = ctypes.c_int
-    smem = libs["cluster"].admm_chunk_cluster_smem_bytes
-    smem.argtypes = [ctypes.c_int] * 3
-    smem.restype = ctypes.c_longlong
-    active = libs["cluster"].admm_chunk_cluster_max_active
-    active.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-    active.restype = ctypes.c_int
+    int_p = ctypes.POINTER(ctypes.c_int)
+    # getattr, not [], so that the settings stay on the cached function
+    for variant, shape in (("cluster", 3), ("split", 5)):  # n, m, C[, S, bytes]
+        smem = getattr(libs[variant], f"admm_chunk_{variant}_smem_bytes")
+        smem.argtypes = [ctypes.c_int] * shape
+        smem.restype = ctypes.c_longlong
+        active = getattr(libs[variant], f"admm_chunk_{variant}_max_active")
+        active.argtypes = [ctypes.c_int] * shape + [int_p]
+        active.restype = ctypes.c_int
+    rows = libs["split"].admm_chunk_split_resident_rows
+    rows.argtypes = [ctypes.c_int] * 5 + [int_p, int_p]
+    rows.restype = None
     return libs
 
 
+def _layout_args(plan: ChunkPlan) -> tuple:
+    """The launch's layout arguments after (n, m): C[, stages, bytes]."""
+    if plan.variant == "split":
+        return plan.cluster, plan.stages, plan.stage_bytes
+    return (plan.cluster,)
+
+
 @functools.lru_cache(maxsize=None)
-def cluster_max_active(n: int, m: int, C: int, device_index: int) -> int:
-    """How many clusters of C CTAs at (n, m) the card holds at once
-    (``cudaOccupancyMaxActiveClusters``)."""
+def max_active_clusters(plan: ChunkPlan, n: int, m: int, device_index: int) -> int:
+    """How many of ``plan``'s clusters (a cluster or split plan) at (n, m)
+    the card holds at once (``cudaOccupancyMaxActiveClusters``)."""
     count = ctypes.c_int(0)
-    lib = _libraries(device_index)["cluster"]
+    lib = _libraries(device_index)[plan.variant]
     with torch.cuda.device(device_index):
-        err = lib.admm_chunk_cluster_max_active(n, m, C, ctypes.byref(count))
+        err = getattr(lib, f"admm_chunk_{plan.variant}_max_active")(
+            n, m, *_layout_args(plan), ctypes.byref(count)
+        )
     if err != 0:
-        raise RuntimeError(f"cluster occupancy query failed: CUDA error {err}")
+        raise RuntimeError(f"{plan.variant} occupancy query failed: CUDA error {err}")
     return count.value
 
 
@@ -233,12 +353,12 @@ def _launch(plan: ChunkPlan, W, A, c0, rho, l, u, x, z, y, n_iters, alpha, activ
         return x_out, z_out, y_out
     index = W.device.index
     lib = _libraries(index)[plan.variant]
-    if plan.variant == "cluster" and cluster_max_active(n, m, plan.cluster, index) == 0:
+    if plan.variant != "stream" and max_active_clusters(plan, n, m, index) == 0:
         raise RuntimeError(
             f"the card cannot schedule a cluster of {plan.cluster} CTAs with "
             f"{plan.smem_bytes} bytes of shared memory each"
         )
-    shape = (B, n, m, plan.cluster) if plan.variant == "cluster" else (B, n, m)
+    shape = (B, n, m) if plan.variant == "stream" else (B, n, m, *_layout_args(plan))
     with torch.cuda.device(index):
         stream = torch.cuda.current_stream(index).cuda_stream
         err = getattr(lib, f"admm_chunk_{plan.variant}_launch")(
@@ -252,7 +372,7 @@ def _launch(plan: ChunkPlan, W, A, c0, rho, l, u, x, z, y, n_iters, alpha, activ
         raise RuntimeError(
             f"admm_chunk {plan.variant} kernel launch failed: CUDA error {err}"
         )
-    name = CLUSTER if plan.variant == "cluster" else STREAM
+    name = f"admm_chunk_{plan.variant}"
     admm_chunk.launches[name if active is None else f"{name}[active]"] += 1
     return x_out, z_out, y_out
 

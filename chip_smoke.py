@@ -9,18 +9,23 @@ and the CUDA toolkit:
 Phases, each printing one line:
   1. device: card name and power limit (nvidia-smi), torch/CUDA versions,
      TF32 flags (must be off);
-  2. build: compiles both kernel sources (csrc/admm_chunk.cu, the cluster
-     kernel, and csrc/admm_chunk_stream.cu, the streaming kernel) side by
-     side with nvcc into build/torch_kernels/, and prints what ptxas
-     reports of each kernel (registers, spills);
+  2. build: compiles the three kernel sources (csrc/admm_chunk.cu, the
+     cluster kernel; csrc/admm_chunk_split.cu, the split kernel; and
+     csrc/admm_chunk_stream.cu, the streaming kernel) side by side with
+     nvcc into build/torch_kernels/, and prints what ptxas reports of each
+     kernel (registers, spills);
   3. kernel: each variant against the plain PyTorch version on random
-     operators: the cluster kernel at the horizon-50 shapes (n = 248,
-     m = 398), B in {1, 7, 256}, the streaming kernel at the horizon-100
-     shapes (n = 498, m = 798), B in {1, 8}, each with and without a mixed
-     ``active`` mask; times, the streaming kernel at the horizon-50 shapes
-     as the figure before the cluster design, the cluster sizes C in
-     {5, 6, 8} at B = 256 and {8, 16} at B = 1, and for every C that fits,
-     its shared bytes per CTA and how many such clusters the card holds;
+     operators, with and without a mixed ``active`` mask: the cluster
+     kernel at the horizon-50 shapes (n = 248, m = 398), B in {1, 7, 256};
+     the split kernel at the horizon-100 shapes (n = 498, m = 798), B in
+     {1, 8}. Times, bound and plain time at B in {1, 256} (horizon 50) and
+     {1, 8} (horizon 100), each beside the streaming kernel on the same
+     inputs (the figure before the cluster and split designs); the
+     cluster sizes C in {5, 6, 8} at B = 256 and {8, 16} at B = 1, and the
+     split kernel's C from 8 to 16 at B = 8 and {8, 16} at B = 1; for
+     every C, the wrapper's shared-memory layout against the library's,
+     and for every C that fits, its shared bytes per CTA and how many such
+     clusters the card holds;
   4. main path: monza racing config, horizon 50, B = 256 windows of a
      difficulty ramp through ``SpatialMPC.batched_get_control_fused``:
      one cold step with converged-scenario skipping on, then five
@@ -31,9 +36,13 @@ Phases, each printing one line:
      golden windows against tests/fixtures/golden_controls.npz (through
      the cluster kernel), and the warm-started B = 1 step time;
   6. mapping control: monza's mapping config (horizon 100), B = 8 gentle
-     windows of the ramp: one cold step with skipping on and one warm
-     step, all solved, through both streaming kernel variants; 2
-     scenarios agree with the plain path on the CPU.
+     windows of the ramp: one cold step with skipping on and five warm
+     steps, all solved, through both split kernel variants; 2 scenarios
+     agree with the plain path on the CPU;
+  7. mapping get_control: the mapping controller as the agent runs it,
+     ``get_control`` at B = 1 on the gentlest window: one cold step and
+     five warm steps, all solved, through the split kernel; the cold step
+     agrees with the port on the CPU.
 Then the kernels line, the card line and, last, the result line. Any
 failure raises and the exit code is not 0. Without a CUDA device it
 exits with code 2 and prints no result.
@@ -209,37 +218,76 @@ def compare(got, want, label: str) -> float:
     return err
 
 
+def _layouts(dev) -> dict:
+    """Every cluster size at horizon 50 (cluster kernel) and horizon 100
+    (split kernel): the wrapper's layout held against the library's, and
+    for every size that fits, its shared bytes per CTA and how many such
+    clusters the card holds at once."""
+    import ctypes
+
+    import acmpc_tpu_torch.ops.admm_chunk as ops
+
+    libs = ops._libraries(dev)
+    out = {"clusters_h50": {}, "splits_h100": {}}
+    n, m = H50
+    for C in range(1, ops.MAX_CLUSTER + 1):
+        smem = ops.cluster_smem_bytes(n, m, C)
+        if libs["cluster"].admm_chunk_cluster_smem_bytes(n, m, C) != smem:
+            raise RuntimeError(f"C={C}: the wrapper's cluster layout is not the kernel's")
+        if smem <= ops.SMEM_PER_BLOCK:
+            plan = ops.ChunkPlan("cluster", C, smem)
+            out["clusters_h50"][C] = {
+                "smem_bytes": smem,
+                "max_active_clusters": ops.max_active_clusters(plan, n, m, dev),
+            }
+    n, m = H100
+    for C in range(1, ops.MAX_CLUSTER + 1):
+        plan = ops.split_plan(n, m, C)
+        lay = ops.split_layout(n, m, C)
+        res_w, res_a = ctypes.c_int(), ctypes.c_int()
+        libs["split"].admm_chunk_split_resident_rows(
+            n, m, C, plan.stages, plan.stage_bytes, ctypes.byref(res_w), ctypes.byref(res_a)
+        )
+        lib_bytes = libs["split"].admm_chunk_split_smem_bytes(n, m, C, plan.stages, plan.stage_bytes)
+        if (lib_bytes, res_w.value, res_a.value) != (lay.bytes, lay.res_w, lay.res_a):
+            raise RuntimeError(f"C={C}: the wrapper's split layout is not the kernel's")
+        if lay.bytes <= ops.SMEM_PER_BLOCK:
+            streamed = 4 * ((lay.rows_w - lay.res_w) * (n + m) + (lay.rows_a - lay.res_a) * n)
+            out["splits_h100"][C] = {
+                "smem_bytes": lay.bytes,
+                "resident_rows_w_a": [lay.res_w, lay.res_a],
+                "rows_w_a": [lay.rows_w, lay.rows_a],
+                "streamed_bytes_per_cta_iter": streamed,
+                "max_active_clusters": ops.max_active_clusters(plan, n, m, dev),
+            }
+    return out
+
+
 def phase_kernel() -> dict:
-    """Both kernel variants against their plain version on the card, with
-    times, the cluster-size sweep and the streaming kernel's figure at
-    the horizon-50 shapes."""
+    """Every kernel variant against its plain version on the card, with
+    times; the streaming kernel on the same inputs as the figure before
+    the cluster design (horizon 50) and before the split design (horizon
+    100); and the cluster-size sweeps."""
     import torch
 
     import acmpc_tpu_torch.ops.admm_chunk as ops
 
     dev = torch.cuda.current_device()
-    lib = ops._libraries(dev)["cluster"]
-    n, m = H50
-    clusters = {}
-    for C in range(1, ops.MAX_CLUSTER + 1):
-        smem = ops.cluster_smem_bytes(n, m, C)
-        if lib.admm_chunk_cluster_smem_bytes(n, m, C) != smem:
-            raise RuntimeError(f"C={C}: the wrapper's shared-memory layout is not the kernel's")
-        if smem <= ops.SMEM_PER_BLOCK:
-            clusters[C] = {
-                "smem_bytes": smem,
-                "max_active_clusters": ops.cluster_max_active(n, m, C, dev),
-            }
-    stream_plan = ops.ChunkPlan("stream", 1, ops.stream_smem_bytes(n, m))
-    sweep = {1: (8, 16), BATCH: (5, 6, 8)}
-
-    results = {"clusters_h50": clusters}
+    results = _layouts(dev)
+    # cluster sizes timed beside the plan, by shape and batch
+    sweep = {
+        (H50, 1): [ops.ChunkPlan("cluster", C, ops.cluster_smem_bytes(*H50, C)) for C in (8, 16)],
+        (H50, BATCH): [ops.ChunkPlan("cluster", C, ops.cluster_smem_bytes(*H50, C)) for C in (5, 6, 8)],
+        (H100, 1): [ops.split_plan(*H100, C) for C in (8, 16)],
+        (H100, MAPPING_BATCH): [ops.split_plan(*H100, C) for C in (8, 9, 10, 12, 14, 16)],
+    }
     for (n, m), batches in ((H50, (1, 7, BATCH)), (H100, (1, MAPPING_BATCH))):
+        stream_plan = ops.ChunkPlan("stream", 1, ops.stream_smem_bytes(n, m))
         for batch in batches:
             inputs = random_chunk_inputs(batch, n, m, seed=batch, device=DEVICE)
             active = torch.arange(batch, device=DEVICE) % 3 != 1
             plan = ops.plan_chunk(n, m, batch)
-            timed = (n, m) == H50 and batch in (1, BATCH) or (n, m) == H100 and batch == MAPPING_BATCH
+            timed = ((n, m), batch) in sweep
             for masked in (False, True):
                 mask = active if masked else None
                 key = f"n{n}_B{batch}{'_active' if masked else ''}"
@@ -253,8 +301,7 @@ def phase_kernel() -> dict:
                 want = plain()
                 ops.admm_chunk.launches.clear()
                 got = ops.admm_chunk(*inputs, n_iters=N_ITERS, alpha=ALPHA, active=mask)
-                name = ops.CLUSTER if plan.variant == "cluster" else ops.STREAM
-                name = f"{name}[active]" if masked else name
+                name = f"admm_chunk_{plan.variant}{'[active]' if masked else ''}"
                 if dict(ops.admm_chunk.launches) != {name: 1}:
                     raise RuntimeError(f"{key}: expected one launch of {name}, got {dict(ops.admm_chunk.launches)}")
                 row = {
@@ -269,9 +316,8 @@ def phase_kernel() -> dict:
                     row["bound_ms"], row["bound_by"] = chunk_bound(
                         n, m, N_ITERS, n_active, batch, masked
                     )
-                if timed and (n, m) == H50:
                     # the streaming kernel on the same inputs: the figure
-                    # before the cluster design
+                    # before the cluster and split designs
                     row["stream_max_abs_err"] = compare(run(stream_plan), want, f"{key} stream")
                     row["stream_ms"] = time_cuda_ms(lambda: run(stream_plan), reps=20)
                     row["streaming_bound_ms"] = 1e3 * N_ITERS * n_active * 4 * (
@@ -279,10 +325,9 @@ def phase_kernel() -> dict:
                     ) / HBM_BYTES_PER_S
                     if not masked:
                         row["ms_by_C"] = {}
-                        for C in sweep[batch]:
-                            p = ops.ChunkPlan("cluster", C, ops.cluster_smem_bytes(n, m, C))
-                            compare(run(p), want, f"{key} C={C}")
-                            row["ms_by_C"][C] = time_cuda_ms(lambda: run(p), reps=20)
+                        for p in sweep[(n, m), batch]:
+                            compare(run(p), want, f"{key} C={p.cluster}")
+                            row["ms_by_C"][p.cluster] = time_cuda_ms(lambda: run(p), reps=20)
                 results[key] = row
     emit("phase 3 kernel vs plain", {"n_iters": N_ITERS, **results})
     return results
@@ -457,10 +502,11 @@ def phase_single_golden() -> dict:
 
 def phase_mapping() -> dict:
     """Monza's mapping control (horizon 100), whose operator no cluster
-    holds: a cold step with skipping on, then a warm step."""
+    holds whole: a cold step with skipping on, then five warm steps, at
+    B = 8."""
     import torch
 
-    from acmpc_tpu_torch.ops.admm_chunk import STREAM, STREAM_ACTIVE, admm_chunk
+    from acmpc_tpu_torch.ops.admm_chunk import SPLIT, SPLIT_ACTIVE, admm_chunk
 
     mpc = make_mpc("monza", DEVICE, mode="mapping")
     skipping = make_mpc("monza", DEVICE, mode="mapping")
@@ -470,24 +516,28 @@ def phase_mapping() -> dict:
     refs = torch.as_tensor(difficulty_ramp(horizon, BATCH)[:MAPPING_BATCH], device=DEVICE)
 
     admm_chunk.launches.clear()
-    cold, _ = skipping.batched_get_control_fused(mpc.initial_state(MAPPING_BATCH), refs)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    warm, _ = mpc.batched_get_control_fused(cold, refs)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
+    cold, cold_diags = skipping.batched_get_control_fused(mpc.initial_state(MAPPING_BATCH), refs)
+    steps = [cold]
+    step_s = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, diags = mpc.batched_get_control_fused(steps[-1], refs)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        steps.append(new)
     launches = dict(admm_chunk.launches)
 
-    for i, s in enumerate((cold, warm)):
+    for i, s in enumerate(steps):
         if not bool(s.solved.all()):
             raise RuntimeError(
                 f"mapping step {i}: {int((~s.solved).sum())} of {MAPPING_BATCH} unsolved"
             )
         if not bool(torch.isfinite(s.projected_control).all()):
             raise RuntimeError(f"mapping step {i}: commands not finite")
-    if warm.projected_control.shape != (MAPPING_BATCH, 2, horizon - 1):
-        raise RuntimeError(f"bad command shape {tuple(warm.projected_control.shape)}")
-    for name in (STREAM, STREAM_ACTIVE):
+    if steps[-1].projected_control.shape != (MAPPING_BATCH, 2, horizon - 1):
+        raise RuntimeError(f"bad command shape {tuple(steps[-1].projected_control.shape)}")
+    for name in (SPLIT, SPLIT_ACTIVE):
         if launches.get(name, 0) == 0:
             raise RuntimeError(f"mapping control never launched {name}")
 
@@ -504,9 +554,12 @@ def phase_mapping() -> dict:
     info = {
         "config": f"monza mapping, horizon {horizon}",
         "batch": MAPPING_BATCH,
-        "solved_per_step": [int(s.solved.sum()) for s in (cold, warm)],
+        "solved_per_step": [int(s.solved.sum()) for s in steps],
+        "cold_chunks": int(cold_diags.control_iterations.max()) // mpc.admm.check_every,
+        "warm_iterations_max": int(diags.control_iterations.max()),
         "launches": launches,
-        "warm_step_ms": 1e3 * warm_s,
+        "warm_ms_per_step": 1e3 * float(np.median(step_s)),
+        "warm_step_ms_all": [1e3 * s for s in step_s],
         "cpu_plain_max_abs_err": cpu_err,
         "card": card_line(),
     }
@@ -514,23 +567,80 @@ def phase_mapping() -> dict:
     return info
 
 
+def phase_mapping_single() -> dict:
+    """The mapping controller as the agent runs it: ``get_control`` at
+    B = 1 on monza's mapping config, a gentle ramp window, one cold step
+    and five warm steps."""
+    import torch
+
+    from acmpc_tpu_torch.ops.admm_chunk import SPLIT, admm_chunk
+
+    mpc = make_mpc("monza", DEVICE, mode="mapping")
+    horizon = mpc.config.horizon
+    ref_np = difficulty_ramp(horizon, BATCH)[0]
+    ref = torch.as_tensor(ref_np, device=DEVICE)
+
+    admm_chunk.launches.clear()
+    cold, cold_diags = mpc.get_control(mpc.initial_state(), ref)
+    steps = [cold]
+    step_s, warm_iterations = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, diags = mpc.get_control(steps[-1], ref)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        steps.append(new)
+        warm_iterations.append(int(diags.control_iterations))
+    launches = dict(admm_chunk.launches)
+    for i, s in enumerate(steps):
+        if not bool(s.solved):
+            raise RuntimeError(f"mapping get_control step {i} unsolved")
+        if not bool(torch.isfinite(s.projected_control).all()):
+            raise RuntimeError(f"mapping get_control step {i}: commands not finite")
+    if launches.get(SPLIT, 0) == 0:
+        raise RuntimeError(f"mapping get_control never launched {SPLIT}")
+
+    cpu_mpc = make_mpc("monza", "cpu", mode="mapping")
+    cpu_state, _ = cpu_mpc.get_control(cpu_mpc.initial_state(), torch.as_tensor(ref_np))
+    cpu_err = float((cpu_state.projected_control - cold.projected_control.cpu()).abs().max())
+    if not bool(cpu_state.solved) or cpu_err > CPU_AGREE_TOL:
+        raise RuntimeError(f"mapping get_control: card and CPU disagree: max abs err {cpu_err}")
+    info = {
+        "config": f"monza mapping, horizon {horizon}, get_control",
+        "batch": 1,
+        "steps": len(steps),
+        "cold_iterations": int(cold_diags.control_iterations),
+        "warm_iterations": warm_iterations,
+        "launches": launches,
+        "warm_ms_per_step": 1e3 * float(np.median(step_s)),
+        "warm_step_ms_all": [1e3 * s for s in step_s],
+        "cpu_plain_max_abs_err": cpu_err,
+        "card": card_line(),
+    }
+    emit("phase 7 mapping get_control", info)
+    return info
+
+
 def kernels_line(kernel: dict, main: dict, mapping: dict) -> dict:
     """One row per kernel variant: launches from the path that runs it
-    (cluster: phase 4; stream: phase 6), numbers from phase 3 at that
-    path's shapes."""
+    (cluster: phase 4; split: phase 6; stream: none since the split
+    kernel, so the count from phase 6 is 0), numbers from phase 3 at that
+    path's shapes (stream: at the mapping shapes, on the split kernel's
+    inputs)."""
     import acmpc_tpu_torch.ops.admm_chunk as ops
 
-    def row(name, key, line, path):
+    def row(name, key, line, path, prefix=""):
         r = kernel[key]
-        source = ops.SOURCES["cluster" if name.startswith(ops.CLUSTER) else "stream"]
+        variant = name.removeprefix("admm_chunk_").removesuffix("[active]")
         return {
             "name": name,
             "route": "cuda",
-            "source": f"acmpc_tpu_torch/csrc/{source}",
+            "source": f"acmpc_tpu_torch/csrc/{ops.SOURCES[variant]}",
             "replaces": f"acmpc_tpu/ops/pallas_admm.py:{line}",
             "launches": path["launches"].get(name, 0),
-            "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"],
+            "max_abs_err": r[f"{prefix}max_abs_err"],
+            "ms": r[f"{prefix}ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
@@ -538,12 +648,16 @@ def kernels_line(kernel: dict, main: dict, mapping: dict) -> dict:
         }
 
     n50, n100 = H50[0], H100[0]
+    h50, h50a = f"n{n50}_B{BATCH}", f"n{n50}_B{BATCH}_active"
+    h100, h100a = f"n{n100}_B{MAPPING_BATCH}", f"n{n100}_B{MAPPING_BATCH}_active"
     return {
         "kernels": [
-            row(ops.CLUSTER, f"n{n50}_B{BATCH}", 99, main),
-            row(ops.CLUSTER_ACTIVE, f"n{n50}_B{BATCH}_active", 103, main),
-            row(ops.STREAM, f"n{n100}_B{MAPPING_BATCH}", 99, mapping),
-            row(ops.STREAM_ACTIVE, f"n{n100}_B{MAPPING_BATCH}_active", 103, mapping),
+            row(ops.CLUSTER, h50, 99, main),
+            row(ops.CLUSTER_ACTIVE, h50a, 103, main),
+            row(ops.SPLIT, h100, 99, mapping),
+            row(ops.SPLIT_ACTIVE, h100a, 103, mapping),
+            row(ops.STREAM, h100, 99, mapping, prefix="stream_"),
+            row(ops.STREAM_ACTIVE, h100a, 103, mapping, prefix="stream_"),
         ]
     }
 
@@ -564,6 +678,7 @@ def main() -> int:
     main_info = phase_main_path()
     phase_single_golden()
     mapping = phase_mapping()
+    phase_mapping_single()
     print(json.dumps(kernels_line(kernel, main_info, mapping)))
     print(card_line())
     print(json.dumps({

@@ -16,8 +16,11 @@ from acmpc_tpu_torch.ops.admm_chunk import (
     admm_chunk,
     admm_chunk_reference,
     cluster_smem_bytes,
+    WARPS,
     plan_chunk,
-    stream_smem_bytes,
+    split_layout,
+    split_plan,
+    split_smem_bytes,
 )
 
 N, M, ITERS, ALPHA = 20, 30, 25, 1.6
@@ -154,7 +157,7 @@ def test_cpu_path_counts_no_launch():
     args = _args(_inputs(3, seed=5))
     admm_chunk(*args, n_iters=2, alpha=ALPHA)
     admm_chunk(*args, n_iters=2, alpha=ALPHA, active=torch.tensor([True, False, True]))
-    assert len(KERNEL_NAMES) == 4
+    assert len(KERNEL_NAMES) == 6
     assert all(admm_chunk.launches[name] == 0 for name in KERNEL_NAMES)
     assert sum(admm_chunk.launches.values()) == 0
 
@@ -187,11 +190,80 @@ def test_plan_cluster_sizes_at_horizon50():
 
 @pytest.mark.parametrize("batch", [1, 8, 256])
 def test_plan_horizon100_takes_stream(batch):
-    # the mapping control: a 4.17 MB operator, above 16 x 227 KB
+    # the mapping control: a 4.17 MB operator, above 16 x 227 KB, goes to
+    # the split kernel, which streams what its clusters do not hold
     n, m = _control_shape(100)
     assert cluster_smem_bytes(n, m, MAX_CLUSTER) > SMEM_PER_BLOCK
     plan = plan_chunk(n, m, batch)
-    assert plan == type(plan)("stream", 1, stream_smem_bytes(n, m))
+    assert plan == split_plan(n, m, plan.cluster)
+    assert plan.variant == "split" and plan.smem_bytes <= SMEM_PER_BLOCK
+
+
+def test_split_layout_at_horizon100():
+    # C = 16: 32 W rows of 5,184 bytes and 12 of 50 A rows of 1,992 bytes
+    # stay, 38 A rows stream, 4 to a stage of 8 KB; C = 8 keeps 36 of 63
+    # W rows and streams all of A
+    n, m = _control_shape(100)
+    lay = split_layout(n, m, 16)
+    assert (lay.rows_w, lay.rows_a, lay.res_w, lay.res_a) == (32, 50, 32, 12)
+    assert (lay.stage_floats, lay.per_stage_w, lay.per_stage_a) == (2048, 1, 4)
+    assert lay.bytes == split_smem_bytes(n, m, 16) == 231_672
+    lay8 = split_layout(n, m, 8)
+    assert (lay8.rows_w, lay8.res_w, lay8.res_a) == (63, 36, 0)
+
+
+@pytest.mark.parametrize("horizon", [93, 100, 120])
+@pytest.mark.parametrize("C", [8, 10, 12, 16])
+@pytest.mark.parametrize("stages, stage_bytes", [(4, 8192), (2, 16384), (8, 4096)])
+def test_split_layout_covers_each_slice_once(horizon, C, stages, stage_bytes):
+    # every CTA's W and A rows: the resident head and the streamed tail,
+    # cut into stages of whole rows, cover the slice exactly once; each
+    # stage fits its slot with room for a 3-float alignment shift and
+    # gives each consumer warp at most one row
+    n, m = _control_shape(horizon)
+    lay = split_layout(n, m, C, stages, stage_bytes)
+    assert lay.bytes <= SMEM_PER_BLOCK
+    for rows, total, res, per, stride in (
+        (lay.rows_w, n, lay.res_w, lay.per_stage_w, n + m),
+        (lay.rows_a, m, lay.res_a, lay.per_stage_a, n),
+    ):
+        assert 1 <= per <= WARPS and per * stride + 3 <= lay.stage_floats
+        covered = []
+        for rank in range(C):
+            start = min(total, rank * rows)
+            count = min(total, start + rows) - start
+            resident = min(count, res)
+            covered += range(start, start + resident)
+            first = start + resident
+            while first < start + count:
+                stage = min(per, start + count - first)
+                covered += range(first, first + stage)
+                first += stage
+        assert covered == list(range(total))
+
+
+@pytest.mark.parametrize("horizon", [93, 100, 120])
+@pytest.mark.parametrize("batch", [1, 8, 256])
+def test_plan_split_fits_and_keeps_most_rows(horizon, batch):
+    # every planned split fits one block's shared memory, and one more
+    # resident row (its 4 n or 4 (n + m) bytes) would not
+    n, m = _control_shape(horizon)
+    plan = plan_chunk(n, m, batch)
+    assert plan.variant == "split" and plan.smem_bytes <= SMEM_PER_BLOCK
+    assert 1 <= plan.cluster <= MAX_CLUSTER
+    lay = split_layout(n, m, plan.cluster, plan.stages, plan.stage_bytes)
+    assert lay.res_a < lay.rows_a  # the shape needs the stream
+    grown = 4 * (n if lay.res_a else n + m)
+    assert lay.bytes + grown > SMEM_PER_BLOCK
+
+
+def test_plan_refuses_what_no_kernel_takes():
+    # at horizon 1000 a CTA's vectors and ring alone exceed 227 KB: the
+    # plan raises instead of handing the kernel a layout it would refuse
+    n, m = _control_shape(1000)
+    assert split_layout(n, m, MAX_CLUSTER).bytes > SMEM_PER_BLOCK
+    with pytest.raises(ValueError):
+        plan_chunk(n, m, 1)
 
 
 def test_plan_largest_cluster_shape():
@@ -201,7 +273,7 @@ def test_plan_largest_cluster_shape():
     assert horizons == list(range(2, largest + 1))
     plan = plan_chunk(*_control_shape(largest), 1)
     assert plan.cluster == MAX_CLUSTER and plan.smem_bytes <= SMEM_PER_BLOCK
-    assert plan_chunk(*_control_shape(largest + 1), 1).variant == "stream"
+    assert plan_chunk(*_control_shape(largest + 1), 1).variant == "split"
 
 
 def test_plan_depends_on_shapes_only():

@@ -172,6 +172,111 @@ def test_refused_cluster_raises(cuda_device):
         ops._launch(plan, *args, n_iters=1, alpha=ALPHA)
 
 
+# the split kernel (operators no cluster holds whole): horizon 100 as
+# planned (16 CTAs, 38 of 50 A rows per CTA streamed); horizon 93, the
+# first shape no cluster holds, where few rows stream; horizon 100 at
+# C = 8, where more than half of each slice streams, W rows too
+H100, H93 = (498, 798), (463, 742)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("masked", [False, True])
+def test_split_matches_reference_at_horizon100_on_card(cuda_device, batch, masked):
+    n, m = H100
+    args = _chunk_inputs(batch, 20 + batch, cuda_device, n, m)
+    active = torch.arange(batch, device=cuda_device) % 3 != 1 if masked else None
+    admm_chunk.launches.clear()
+    got = admm_chunk(*args, n_iters=ITERS, alpha=ALPHA, active=active)
+    want = admm_chunk_reference(*args, n_iters=ITERS, alpha=ALPHA, active=active)
+    assert dict(admm_chunk.launches) == {ops.SPLIT_ACTIVE if masked else ops.SPLIT: 1}
+    _assert_matches(got, want)
+    if masked and batch > 1:
+        for g, start in zip(got, args[6:]):
+            assert torch.equal(g[1], start[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape, C, offset",
+    [(H93, 16, 0), (H93, 16, 1), (H100, 8, 0), (H100, 8, 3), (H100, 12, 1), ((21, 30), 16, 1)],
+)
+def test_split_cluster_sizes_and_unaligned_bases_on_card(cuda_device, shape, C, offset):
+    # bases 4 or 12 bytes past a 16-byte boundary: every resident slice and
+    # every stage has a ragged head and tail; n + m = 51 is odd, and at
+    # C = 16 with n = 21 some CTAs hold no rows
+    n, m = shape
+    lay = ops.split_layout(n, m, C)
+    args = _chunk_inputs(2, 30 + C, cuda_device, n, m, offset=offset)
+    got = ops._launch(ops.split_plan(n, m, C), *args, n_iters=ITERS, alpha=ALPHA)
+    _assert_matches(got, admm_chunk_reference(*args, n_iters=ITERS, alpha=ALPHA))
+    if shape == H100 and C == 8:
+        assert lay.res_w < lay.rows_w and lay.res_a == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_iters", [0, 1, 2])
+@pytest.mark.parametrize("stages, stage_bytes", [(4, 8192), (1, 8192), (2, 16384)])
+def test_split_few_iterations_and_rings_on_card(cuda_device, n_iters, stages, stage_bytes):
+    # the ring's parity across phases and iterations: one stage, and a
+    # stream shorter than the ring
+    n, m = H100
+    args = _chunk_inputs(2, 40 + n_iters, cuda_device, n, m)
+    plan = ops.split_plan(n, m, 16, stages, stage_bytes)
+    got = ops._launch(plan, *args, n_iters=n_iters, alpha=ALPHA)
+    want = admm_chunk_reference(*args, n_iters=n_iters, alpha=ALPHA)
+    if n_iters == 0:
+        torch.cuda.synchronize()
+        for g, start in zip(got, args[6:]):
+            assert torch.equal(g, start)
+    else:
+        _assert_matches(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+def test_split_small_stream_on_card(cuda_device, offset):
+    # a ring of four 57 KB stages leaves room for 14 of 21 W rows and no A
+    # row: W's tail is smaller than one stage, and an iteration has fewer
+    # stages (3) than the ring has slots; a stage of 16 rows gives every
+    # consumer warp one row
+    n, m = 21, 30
+    lay = ops.split_layout(n, m, 1, 4, 57000)
+    assert (lay.res_w, lay.res_a, lay.per_stage_w, lay.per_stage_a) == (14, 0, 16, 16)
+    args = _chunk_inputs(3, 50, cuda_device, n, m, offset=offset)
+    got = ops._launch(ops.split_plan(n, m, 1, 4, 57000), *args, n_iters=ITERS, alpha=ALPHA)
+    _assert_matches(got, admm_chunk_reference(*args, n_iters=ITERS, alpha=ALPHA))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [8, 16])
+def test_split_is_deterministic_on_card(cuda_device, C):
+    # each sum has one fixed order, so any race between the ring, the
+    # resident loads and the DSMEM exchange would show as a launch whose
+    # bits differ from the first
+    n, m = H100
+    args = _chunk_inputs(8, 60 + C, cuda_device, n, m, offset=1)
+    plan = ops.split_plan(n, m, C)
+    first = ops._launch(plan, *args, n_iters=ITERS, alpha=ALPHA)
+    for _ in range(30):
+        again = ops._launch(plan, *args, n_iters=ITERS, alpha=ALPHA)
+        torch.cuda.synchronize()
+        for a, b in zip(again, first):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_refused_split_raises(cuda_device):
+    # a layout in which not even the vectors and the ring fit is refused
+    # by the library, and the call raises rather than falling back
+    n, m = H100
+    args = _chunk_inputs(1, 51, cuda_device, n, m)
+    plan = ops.split_plan(n, m, 16, 16, 32768)
+    assert plan.smem_bytes > ops.SMEM_PER_BLOCK
+    with pytest.raises(RuntimeError):
+        ops._launch(plan, *args, n_iters=1, alpha=ALPHA)
+
+
 @pytest.mark.cuda
 def test_kernel_refuses_mixed_devices(cuda_device):
     args = _chunk_inputs(2, 7, cuda_device)
