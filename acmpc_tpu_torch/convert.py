@@ -1,7 +1,8 @@
 """Carry state across between the JAX package and the port.
 
 Values cross as numpy arrays, so neither side imports the other: a
-caller turns a JAX ``MPCState`` into a mapping of numpy arrays (field
+caller turns a JAX ``MPCState`` (or a lap sweep's ``CarState``,
+``SweepGrid`` or ``TrackMap``) into a mapping of numpy arrays (field
 name -> array) and hands it here, and back.
 """
 
@@ -13,7 +14,9 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from acmpc_tpu_torch.bench.lap_sweep import CarState, SweepGrid
 from acmpc_tpu_torch.device import resolve_device
+from acmpc_tpu_torch.localise.track_map import TrackMap
 from acmpc_tpu_torch.mpc.spatial_mpc import MPCState
 
 _MPC_STATE_DTYPES = {
@@ -22,30 +25,66 @@ _MPC_STATE_DTYPES = {
 }
 
 
+def _from_numpy(cls, arrays: Mapping[str, np.ndarray], device, dtypes=None):
+    """``cls`` (a dataclass of tensors) from numpy arrays keyed by field
+    name: fp32 unless ``dtypes`` names another type."""
+    device = resolve_device(device)
+    dtypes = dtypes or {}
+    return cls(
+        **{
+            f.name: torch.tensor(
+                np.asarray(arrays[f.name]),
+                dtype=dtypes.get(f.name, torch.float32),
+                device=device,
+            )
+            for f in dataclasses.fields(cls)
+        }
+    )
+
+
+def _to_numpy(value) -> dict[str, np.ndarray]:
+    return {
+        f.name: getattr(value, f.name).detach().cpu().numpy()
+        for f in dataclasses.fields(value)
+    }
+
+
 def mpc_state_from_numpy(
     arrays: Mapping[str, np.ndarray], device: torch.device | str | None = None
 ) -> MPCState:
     """An ``MPCState`` from numpy arrays keyed by field name (fp32 floats,
     int32 counter, bool flag)."""
-    device = resolve_device(device)
-    return MPCState(
-        **{
-            f.name: torch.tensor(
-                np.asarray(arrays[f.name]),
-                dtype=_MPC_STATE_DTYPES.get(f.name, torch.float32),
-                device=device,
-            )
-            for f in dataclasses.fields(MPCState)
-        }
-    )
+    return _from_numpy(MPCState, arrays, device, _MPC_STATE_DTYPES)
 
 
 def mpc_state_to_numpy(state: MPCState) -> dict[str, np.ndarray]:
     """Field name -> numpy array (on the host) of an ``MPCState``."""
-    return {
-        f.name: getattr(state, f.name).detach().cpu().numpy()
-        for f in dataclasses.fields(MPCState)
-    }
+    return _to_numpy(state)
+
+
+def car_state_from_numpy(
+    arrays: Mapping[str, np.ndarray], device: torch.device | str | None = None
+) -> CarState:
+    """A lap sweep's ``CarState`` (x, y, yaw, v; fp32)."""
+    return _from_numpy(CarState, arrays, device)
+
+
+def car_state_to_numpy(car: CarState) -> dict[str, np.ndarray]:
+    return _to_numpy(car)
+
+
+def sweep_grid_from_numpy(
+    arrays: Mapping[str, np.ndarray], device: torch.device | str | None = None
+) -> SweepGrid:
+    """A ``SweepGrid`` (int64 start indices, fp32 offsets and caps)."""
+    return _from_numpy(SweepGrid, arrays, device, {"start_index": torch.int64})
+
+
+def track_map_from_numpy(
+    arrays: Mapping[str, np.ndarray], device: torch.device | str | None = None
+) -> TrackMap:
+    """A ``TrackMap`` from its centre, left and right (M, 2) polylines."""
+    return _from_numpy(TrackMap, arrays, device)
 
 
 def qp_from_numpy(P, q, A, l, u, device: torch.device | str | None = None):

@@ -5,6 +5,7 @@ from acmpc_tpu_torch.geometry.tracks import (
     get_curved_track,
     get_hairpin_track,
     get_straight_track,
+    offset_boundaries,
     rotate_track_points,
     with_widths,
 )
@@ -17,6 +18,7 @@ __all__ = [
     "get_curved_track",
     "get_hairpin_track",
     "get_straight_track",
+    "offset_boundaries",
     "rotate_track_points",
     "with_widths",
     "wrap_to_pi",

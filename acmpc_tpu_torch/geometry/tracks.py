@@ -2,8 +2,8 @@
 
 Own copy of ``acmpc_tpu/geometry/tracks.py``: hairpin, curve, chicane and
 straight families, each a ``(2, N)`` array of x/y points, optionally
-rotated, plus :func:`battery`, the fixed window set of the golden-control
-fixture.
+rotated; :func:`offset_boundaries` for closed test circuits; and
+:func:`battery`, the fixed window set of the golden-control fixture.
 """
 
 from __future__ import annotations
@@ -53,6 +53,15 @@ def with_widths(track_xy: np.ndarray, width_near: float = 10.0, width_far: float
     n = track_xy.shape[1]
     widths = np.linspace(width_near, width_far, n)
     return np.stack([track_xy[0], track_xy[1], widths]).T
+
+
+def offset_boundaries(centre: np.ndarray, half_width: float):
+    """Left/right boundary polylines offset along a closed centreline's
+    unit normals (left = +90 degrees from the direction of travel)."""
+    d = np.roll(centre, -1, axis=0) - centre
+    t = d / np.linalg.norm(d, axis=1, keepdims=True)
+    n = np.stack([-t[:, 1], t[:, 0]], axis=1)
+    return centre + half_width * n, centre - half_width * n
 
 
 def battery(horizon: int) -> dict[str, np.ndarray]:

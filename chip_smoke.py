@@ -42,7 +42,21 @@ Phases, each printing one line:
   7. mapping get_control: the mapping controller as the agent runs it,
      ``get_control`` at B = 1 on the gentlest window: one cold step and
      five warm steps, all solved, through the split kernel; the cold step
-     agrees with the port on the CPU.
+     agrees with the port on the CPU;
+  8. closed-loop lap sweep: the repository's closed-loop operating point
+     (horizon 50, a real-time-iteration budget of 50 ADMM iterations per
+     solve) on the shipped 22 km synth_nordschleife map, B = 256 perturbed
+     scenarios through ``LapSweep.run_fused``: one untimed run of 25 steps,
+     one timed run (closed-loop solves/s, one cluster launch per step,
+     success >= 0.99), 25 more steps split into window, MPC step and
+     integration, each ended by a synchronise, whose first step agrees with
+     the port on the CPU for 8 scenarios; then the shipped raceline with
+     its widths and speed profile (4 scenarios, 10 steps) and
+     ``bench/full_lap.run_laps`` at B = 32 for 100 steps;
+  9. all-tracks batched solve: ``MultiTrackMPC`` over the 7 racing configs
+     at horizon 50 on 7 hairpin windows against the fixture's
+     ``multi_track/*``, then ``get_control_grid`` at S = 36 (252
+     scenarios): one cold and five warm steps, every scenario solved.
 Then the kernels line, the card line and, last, the result line. Any
 failure raises and the exit code is not 0. Without a CUDA device it
 exits with code 2 and prints no result.
@@ -50,6 +64,7 @@ exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import pathlib
@@ -67,6 +82,13 @@ BATCH = 256
 H50 = (248, 398)
 H100 = (498, 798)
 MAPPING_BATCH = 8
+# the closed loop (phase 8): scenarios and steps of the sweep, of the
+# raceline run and of the full-lap run
+SWEEP_BATCH, SWEEP_STEPS = 256, 25
+RACELINE_BATCH, RACELINE_STEPS = 4, 10
+LAP_BATCH, LAP_STEPS = 32, 100
+# the all-tracks grid (phase 9): scenarios per track
+GRID_SCENARIOS = 36
 N_ITERS, ALPHA = 25, 1.6
 TRACKS = [
     "monza", "spa", "silverstone", "nordschleife",
@@ -622,12 +644,238 @@ def phase_mapping_single() -> dict:
     return info
 
 
-def kernels_line(kernel: dict, main: dict, mapping: dict) -> dict:
-    """One row per kernel variant: launches from the path that runs it
-    (cluster: phase 4; split: phase 6; stream: none since the split
-    kernel, so the count from phase 6 is 0), numbers from phase 3 at that
-    path's shapes (stream: at the mapping shapes, on the split kernel's
-    inputs)."""
+def _counted(fn):
+    """``fn()`` with the launch counts set to 0 just before it; returns
+    (its result, the counts just after)."""
+    from acmpc_tpu_torch.ops.admm_chunk import admm_chunk
+
+    admm_chunk.launches.clear()
+    out = fn()
+    return out, dict(admm_chunk.launches)
+
+
+def _sub_grid(grid, n: int):
+    """The first ``n`` scenarios of a sweep grid."""
+    return type(grid)(*(getattr(grid, f.name)[:n] for f in dataclasses.fields(grid)))
+
+
+def _finite(t) -> bool:
+    import torch
+
+    return bool(torch.isfinite(t.float()).all())
+
+
+def _check_closed_loop(label: str, n_steps: int, launches: dict, rate: float, least: float):
+    """One cluster launch per closed-loop step (one RTI chunk per solve)
+    and a solve success of at least ``least``."""
+    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER
+
+    if launches != {CLUSTER: n_steps}:
+        raise RuntimeError(f"{label}: expected {n_steps} launches of {CLUSTER}, got {launches}")
+    if rate < least:
+        raise RuntimeError(f"{label}: solve success {rate} < {least}")
+
+
+def phase_lap_sweep() -> dict:
+    """The closed loop at the repository's operating point on the shipped
+    map: the B = 256 sweep (timed, then split per step), its first step on
+    the CPU, the raceline run and the full-lap run."""
+    import torch
+
+    from acmpc_tpu_torch.bench.full_lap import (
+        HALF_WIDTH, MAP, closed_loop_mpc, raceline_sweep, run_laps,
+    )
+    from acmpc_tpu_torch.bench.lap_step import split_steps
+    from acmpc_tpu_torch.bench.lap_sweep import LapSweep, SweepGrid
+    from acmpc_tpu_torch.localise.track_map import load_track_map
+
+    dt = 0.1
+    mpc = closed_loop_mpc(DEVICE)
+    tm = load_track_map(MAP, device=DEVICE)
+    sweep = LapSweep(mpc, tm, half_width=HALF_WIDTH, dt=dt)
+
+    def grid_of(batch):
+        g = torch.Generator(device=DEVICE).manual_seed(0)
+        return SweepGrid.perturbed(g, batch, tm.n_centre, v_max=24.0)
+
+    grid = grid_of(SWEEP_BATCH)
+    sweep.run_fused(grid, SWEEP_STEPS)  # untimed: first use of every shape
+    torch.cuda.synchronize()
+
+    def timed():
+        t0 = time.perf_counter()
+        _, metrics = sweep.run_fused(grid, SWEEP_STEPS)
+        torch.cuda.synchronize()
+        return metrics, time.perf_counter() - t0
+
+    (metrics, wall), sweep_launches = _counted(timed)
+    summary = sweep.summarise(metrics, SWEEP_STEPS)
+    _check_closed_loop("sweep", SWEEP_STEPS, sweep_launches, summary["solve_success_rate"], 0.99)
+    for k, v in metrics.items():
+        if v.shape != (SWEEP_BATCH, SWEEP_STEPS) or not _finite(v):
+            raise RuntimeError(f"sweep: metric {k} of shape {tuple(v.shape)} or not finite")
+
+    # the same loop, each piece ended by a synchronise: window argmin
+    # (with the warm-start shift and the runtime cap), the MPC step, the
+    # integration
+    split, first = split_steps(sweep, grid, SWEEP_STEPS)
+    step_ms = [sum(parts) for parts in zip(*split.values())]
+
+    # the first step of 8 scenarios through the port on the CPU, from the
+    # same cars and states
+    (cars0, states0, prev0), (states1, metrics1, i01) = first
+    pick = torch.arange(0, SWEEP_BATCH, SWEEP_BATCH // 8, device=DEVICE)
+
+    def rows(tree):
+        return type(tree)(*(getattr(tree, f.name)[pick].cpu() for f in dataclasses.fields(tree)))
+
+    cpu_mpc = closed_loop_mpc("cpu")
+    cpu_sweep = LapSweep(cpu_mpc, load_track_map(MAP, device="cpu"), half_width=HALF_WIDTH, dt=dt)
+    _, cpu_states, cpu_metrics, cpu_i0 = cpu_sweep.fused_step(
+        rows(cars0), rows(states0), grid.v_max[pick].cpu(), prev0[pick].cpu()
+    )
+    if not torch.equal(cpu_i0, i01[pick].cpu()):
+        raise RuntimeError("sweep: card and CPU windows differ")
+    cpu_err = max(
+        float((cpu_states.projected_control - states1.projected_control[pick].cpu()).abs().max()),
+        float((cpu_metrics["v"] - metrics1["v"][pick].cpu()).abs().max()),
+    )
+    if not bool(cpu_states.solved.all()) or cpu_err > CPU_AGREE_TOL:
+        raise RuntimeError(f"sweep: card and CPU disagree: max abs err {cpu_err}")
+
+    # the shipped raceline with its widths and speed profile
+    rsweep, rgrid = raceline_sweep(mpc, tm, _sub_grid(grid, RACELINE_BATCH), dt)
+    raceline, raceline_launches = _counted(lambda: run_laps(rsweep, rgrid, dt, RACELINE_STEPS))
+    if raceline["total_solves"] != RACELINE_BATCH * RACELINE_STEPS:
+        raise RuntimeError(f"raceline: {raceline['total_solves']} solves")
+    _check_closed_loop("raceline", RACELINE_STEPS, raceline_launches, raceline["solve_success_rate"], 0.9)
+
+    # the full-lap tool's loop at B = 32
+    laps, lap_launches = _counted(lambda: run_laps(sweep, grid_of(LAP_BATCH), dt, LAP_STEPS))
+    if laps["sequential_solves_per_scenario"] != LAP_STEPS:
+        raise RuntimeError(f"full lap: {laps['sequential_solves_per_scenario']} sequential solves")
+    _check_closed_loop("full lap", LAP_STEPS, lap_launches, laps["solve_success_rate"], 0.99)
+
+    launches = collections.Counter()
+    for counts in (sweep_launches, raceline_launches, lap_launches):
+        launches.update(counts)
+    info = {
+        "config": "closed loop: horizon 50, RTI 50 iterations, synth_nordschleife, half width 4.5",
+        "map_points": tm.n_centre,
+        "batch": SWEEP_BATCH,
+        "steps": SWEEP_STEPS,
+        "closed_loop_solves_per_s": SWEEP_BATCH * SWEEP_STEPS / wall,
+        "wall_s": wall,
+        "summary": summary,
+        "split_step_ms_median": float(np.median(step_ms)),
+        "split_step_ms_all": step_ms,
+        **{f"{k}_median": float(np.median(v)) for k, v in split.items()},
+        **split,
+        "cpu_plain_max_abs_err": cpu_err,
+        "raceline": raceline,
+        "full_lap": laps,
+        "launches_sweep": sweep_launches,
+        "launches_raceline": raceline_launches,
+        "launches_full_lap": lap_launches,
+        "launches": dict(launches),
+        "card": card_line(),
+    }
+    emit("phase 8 closed-loop lap sweep", info)
+    return info
+
+
+def phase_multi_track() -> dict:
+    """The 7 racing configs in one batched solve against the fixture,
+    then the (S, T) grid at S = 36."""
+    import torch
+
+    from acmpc_tpu_torch.config import load_config
+    from acmpc_tpu_torch.dynamics import SpatialBicycleModel
+    from acmpc_tpu_torch.geometry.tracks import get_hairpin_track, with_widths
+    from acmpc_tpu_torch.mpc.multi_track import MultiTrackMPC
+    from acmpc_tpu_torch.mpc.spatial_mpc import SpatialMPC
+    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER
+
+    agent = [load_config(ROOT / "configs" / f"{t}.yaml") for t in TRACKS]
+    configs = [dataclasses.replace(c.racing_control, horizon=HORIZON) for c in agent]
+    model = SpatialBicycleModel(
+        agent[0].vehicle, configs[0].constraints.v_min, configs[0].constraints.v_max
+    )
+    mt = MultiTrackMPC(SpatialMPC(configs[0], model, device=DEVICE), configs)
+    caps = torch.tensor(
+        [min(30.0, c.unlocalised_max_speed or 30.0) for c in configs], device=DEVICE
+    )
+
+    def hairpins(extra):
+        return np.stack([
+            with_widths(get_hairpin_track(40.0 + 5 * t + extra, HORIZON)) for t in range(len(TRACKS))
+        ]).astype(np.float32)
+
+    golden = np.load(ROOT / "tests" / "fixtures" / "golden_controls.npz")
+    (out, _), fixture_launches = _counted(
+        lambda: mt.get_control(mt.initial_states(), hairpins(0.0), v_max_runtime=caps)
+    )
+    if not np.array_equal(out.solved.cpu().numpy(), golden["multi_track/solved"]):
+        raise RuntimeError("multi-track: solved flags differ from the fixture")
+    worst = 0.0
+    for field in ("projected_control", "cum_time"):
+        got = getattr(out, field).cpu().numpy()
+        want = golden[f"multi_track/{field}"]
+        np.testing.assert_allclose(got, want, rtol=GOLDEN_TOL, atol=GOLDEN_TOL, err_msg=field)
+        worst = max(worst, float(np.abs(got - want).max()))
+
+    S = GRID_SCENARIOS
+    refs = torch.as_tensor(np.stack([hairpins(2.0 * s) for s in range(S)]), device=DEVICE)
+    v_grid = caps.expand(S, len(TRACKS))
+
+    def grid_steps():
+        cold, _ = mt.get_control_grid(mt.initial_states(n_scenarios=S), refs, v_grid)
+        steps, step_s = [cold], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new, diags = mt.get_control_grid(steps[-1], refs, v_grid)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            steps.append(new)
+        return steps, step_s, diags
+
+    (steps, step_s, diags), grid_launches = _counted(grid_steps)
+    for i, s in enumerate(steps):
+        if not bool(s.solved.all()):
+            raise RuntimeError(f"grid step {i}: {int((~s.solved).sum())} of {S * len(TRACKS)} unsolved")
+        if not _finite(s.projected_control):
+            raise RuntimeError(f"grid step {i}: commands not finite")
+    for label, counts in (("fixture", fixture_launches), ("grid", grid_launches)):
+        if counts.get(CLUSTER, 0) == 0 or set(counts) != {CLUSTER}:
+            raise RuntimeError(f"multi-track {label}: expected launches of {CLUSTER}, got {counts}")
+    warm_ms = 1e3 * float(np.median(step_s))
+    launches = collections.Counter(fixture_launches)
+    launches.update(grid_launches)
+    info = {
+        "config": f"{len(TRACKS)} racing configs, horizon {HORIZON}",
+        "golden_max_abs_err": worst,
+        "tolerance": GOLDEN_TOL,
+        "grid": [S, len(TRACKS)],
+        "grid_warm_ms_per_step": warm_ms,
+        "grid_warm_step_ms_all": [1e3 * s for s in step_s],
+        "grid_solves_per_s": S * len(TRACKS) / (warm_ms / 1e3),
+        "grid_warm_iterations_max": int(diags.control_iterations.max()),
+        "launches_fixture": fixture_launches,
+        "launches_grid": grid_launches,
+        "launches": dict(launches),
+        "card": card_line(),
+    }
+    emit("phase 9 all-tracks batched solve", info)
+    return info
+
+
+def kernels_line(kernel: dict, main: dict, mapping: dict, sweep: dict, multi: dict) -> dict:
+    """One row per kernel variant: launches from the paths that run it
+    (cluster: phases 4, 8 and 9; split: phase 6; stream: none since the
+    split kernel, so the count from phase 6 is 0), numbers from phase 3
+    at the horizon-50 B = 256 or the mapping shapes (stream: at the
+    mapping shapes, on the split kernel's inputs)."""
     import acmpc_tpu_torch.ops.admm_chunk as ops
 
     def row(name, key, line, path, prefix=""):
@@ -650,10 +898,14 @@ def kernels_line(kernel: dict, main: dict, mapping: dict) -> dict:
     n50, n100 = H50[0], H100[0]
     h50, h50a = f"n{n50}_B{BATCH}", f"n{n50}_B{BATCH}_active"
     h100, h100a = f"n{n100}_B{MAPPING_BATCH}", f"n{n100}_B{MAPPING_BATCH}_active"
+    cluster_paths = collections.Counter()
+    for path in (main, sweep, multi):
+        cluster_paths.update(path["launches"])
+    cluster_paths = {"launches": cluster_paths}
     return {
         "kernels": [
-            row(ops.CLUSTER, h50, 99, main),
-            row(ops.CLUSTER_ACTIVE, h50a, 103, main),
+            row(ops.CLUSTER, h50, 99, cluster_paths),
+            row(ops.CLUSTER_ACTIVE, h50a, 103, cluster_paths),
             row(ops.SPLIT, h100, 99, mapping),
             row(ops.SPLIT_ACTIVE, h100a, 103, mapping),
             row(ops.STREAM, h100, 99, mapping, prefix="stream_"),
@@ -679,7 +931,9 @@ def main() -> int:
     phase_single_golden()
     mapping = phase_mapping()
     phase_mapping_single()
-    print(json.dumps(kernels_line(kernel, main_info, mapping)))
+    sweep = phase_lap_sweep()
+    multi = phase_multi_track()
+    print(json.dumps(kernels_line(kernel, main_info, mapping, sweep, multi)))
     print(card_line())
     print(json.dumps({
         "ok": True,

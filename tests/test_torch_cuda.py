@@ -308,3 +308,88 @@ def test_batched_step_on_card_matches_cpu(cuda_device):
     torch.testing.assert_close(
         gpu.projected_control.cpu(), cpu.projected_control, rtol=2e-3, atol=2e-3
     )
+
+
+# -- the closed loop and the all-tracks solve (no JAX on the card machine)
+TRACKS = [
+    "monza", "spa", "silverstone", "nordschleife",
+    "vallelunga", "bathurst", "yas_marina",
+]
+
+
+@pytest.mark.cuda
+def test_load_track_map_places_tensors_on_card(cuda_device):
+    from acmpc_tpu_torch.bench.full_lap import MAP
+    from acmpc_tpu_torch.localise.track_map import load_track_map
+
+    tm = load_track_map(MAP)  # the entry point's default device
+    cpu = load_track_map(MAP, device="cpu")
+    for field in ("centre", "left", "right"):
+        t = getattr(tm, field)
+        assert t.device.type == "cuda" and t.dtype == torch.float32
+        assert torch.equal(t.cpu(), getattr(cpu, field))
+
+
+@pytest.mark.cuda
+def test_lap_sweep_on_card_matches_cpu_step_by_step(cuda_device):
+    # teacher forcing: each step of the card's run, from its cars and
+    # states, through the port on the CPU. The windows (argmins on the
+    # same fp32 inputs) agree exactly; commands to the card-vs-CPU
+    # tolerance of chip_smoke.py (fp32 rounding in the kernel, the
+    # batched Cholesky and the reductions)
+    from acmpc_tpu_torch.bench.full_lap import HALF_WIDTH, MAP, closed_loop_mpc
+    from acmpc_tpu_torch.bench.lap_sweep import LapSweep, SweepGrid
+    from acmpc_tpu_torch.localise.track_map import load_track_map
+
+    def sweep_on(device):
+        return LapSweep(
+            closed_loop_mpc(device), load_track_map(MAP, device=device), half_width=HALF_WIDTH
+        )
+
+    gpu, cpu = sweep_on(cuda_device), sweep_on("cpu")
+    grid = SweepGrid.perturbed(torch.Generator(device=cuda_device).manual_seed(1), 8, gpu.map.n_centre, 24.0)
+
+    def host(tree):
+        return type(tree)(*(getattr(tree, f.name).cpu() for f in dataclasses.fields(tree)))
+
+    cars, states, prev = gpu.start(grid)
+    admm_chunk.launches.clear()
+    for step in range(10):
+        c_cars, c_states, c_metrics, c_i0 = cpu.fused_step(
+            host(cars), host(states), grid.v_max.cpu(), prev.cpu()
+        )
+        cars, states, metrics, prev = gpu.fused_step(cars, states, grid.v_max, prev)
+        assert torch.equal(prev.cpu(), c_i0), step
+        assert bool(metrics["solved"].all()) and bool(c_metrics["solved"].all()), step
+        torch.testing.assert_close(
+            states.projected_control.cpu(), c_states.projected_control, rtol=2e-3, atol=2e-3
+        )
+        torch.testing.assert_close(metrics["v"].cpu(), c_metrics["v"], rtol=2e-3, atol=2e-3)
+    assert dict(admm_chunk.launches) == {CLUSTER: 10}
+
+
+@pytest.mark.cuda
+def test_multi_track_on_card_matches_golden(cuda_device):
+    from acmpc_tpu_torch.config import load_config
+    from acmpc_tpu_torch.dynamics import SpatialBicycleModel
+    from acmpc_tpu_torch.geometry.tracks import get_hairpin_track, with_widths
+    from acmpc_tpu_torch.mpc.multi_track import MultiTrackMPC
+    from acmpc_tpu_torch.mpc.spatial_mpc import SpatialMPC
+
+    agent = [load_config(ROOT / "configs" / f"{t}.yaml") for t in TRACKS]
+    configs = [dataclasses.replace(c.racing_control, horizon=50) for c in agent]
+    model = SpatialBicycleModel(agent[0].vehicle, configs[0].constraints.v_min, configs[0].constraints.v_max)
+    mt = MultiTrackMPC(SpatialMPC(configs[0], model, device=cuda_device), configs)
+    refs = np.stack([with_widths(get_hairpin_track(40.0 + 5 * i, 50)) for i in range(len(TRACKS))])
+    caps = np.array([min(30.0, c.unlocalised_max_speed or 30.0) for c in configs], np.float32)
+    admm_chunk.launches.clear()
+    out, _ = mt.get_control(mt.initial_states(), refs.astype(np.float32), caps)
+    assert admm_chunk.launches[CLUSTER] > 0
+    golden = np.load(ROOT / "tests" / "fixtures" / "golden_controls.npz")
+    np.testing.assert_array_equal(out.solved.cpu().numpy(), golden["multi_track/solved"])
+    for field in ("projected_control", "cum_time"):
+        # the fixture's own tolerance (tests/test_golden.py)
+        np.testing.assert_allclose(
+            getattr(out, field).cpu().numpy(), golden[f"multi_track/{field}"],
+            rtol=5e-3, atol=5e-3, err_msg=field,
+        )

@@ -38,8 +38,13 @@ def test_import_pulls_in_no_jax():
     assert out.returncode == 0, out.stderr
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["bad"] == []
-    # every module of the slice was imported
-    assert len(result["modules"]) >= 20, result["modules"]
+    # every module of the port was imported, this slice's among them
+    assert len(result["modules"]) >= 33, result["modules"]
+    for name in (
+        "localise.track_map", "runtime.commands", "mpc.multi_track",
+        "bench.lap_sweep", "bench.full_lap", "bench.lap_step",
+    ):
+        assert f"acmpc_tpu_torch.{name}" in result["modules"], name
 
 
 def _code_only(path: pathlib.Path) -> str:
