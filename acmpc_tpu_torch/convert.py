@@ -2,8 +2,9 @@
 
 Values cross as numpy arrays, so neither side imports the other: a
 caller turns a JAX ``MPCState`` (or a lap sweep's ``CarState``,
-``SweepGrid`` or ``TrackMap``) into a mapping of numpy arrays (field
-name -> array) and hands it here, and back.
+``SweepGrid`` or ``TrackMap``, or the FPN's Flax variables) into a
+mapping of numpy arrays (field name -> array, or the variables tree with
+numpy leaves) and hands it here, and back.
 """
 
 from __future__ import annotations
@@ -15,9 +16,12 @@ import numpy as np
 import torch
 
 from acmpc_tpu_torch.bench.lap_sweep import CarState, SweepGrid
+from acmpc_tpu_torch.config.schema import PerceptionConfig
 from acmpc_tpu_torch.device import resolve_device
 from acmpc_tpu_torch.localise.track_map import TrackMap
+from acmpc_tpu_torch.models.fpn_resnet18 import state_dict_from_flax
 from acmpc_tpu_torch.mpc.spatial_mpc import MPCState
+from acmpc_tpu_torch.perception.perceiver import Perceiver
 
 _MPC_STATE_DTYPES = {
     "infeasibility_counter": torch.int32,
@@ -94,3 +98,24 @@ def qp_from_numpy(P, q, A, l, u, device: torch.device | str | None = None):
         torch.tensor(np.asarray(v), dtype=torch.float32, device=device)
         for v in (P, q, A, l, u)
     )
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, Mapping):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
+def fpn_state_dict_from_numpy(variables: Mapping) -> dict[str, torch.Tensor]:
+    """The port's ``FPNResNet18`` state dict of the Flax variables tree
+    (``{"params", "batch_stats"}``, any array leaves turned into numpy),
+    in the leaves' dtypes."""
+    return state_dict_from_flax(_numpy_tree(variables))
+
+
+def perceiver_from_numpy(
+    cfg: PerceptionConfig, variables: Mapping, device: torch.device | str | None = None
+) -> Perceiver:
+    """A ``Perceiver`` with the FPN weights of a Flax variables tree (the
+    JAX package's exact weights, carried across as numpy)."""
+    return Perceiver(cfg, _numpy_tree(variables), device)

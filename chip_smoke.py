@@ -9,11 +9,12 @@ and the CUDA toolkit:
 Phases, each printing one line:
   1. device: card name and power limit (nvidia-smi), torch/CUDA versions,
      TF32 flags (must be off);
-  2. build: compiles the three kernel sources (csrc/admm_chunk.cu, the
-     cluster kernel; csrc/admm_chunk_split.cu, the split kernel; and
-     csrc/admm_chunk_stream.cu, the streaming kernel) side by side with
-     nvcc into build/torch_kernels/, and prints what ptxas reports of each
-     kernel (registers, spills);
+  2. build: compiles the four kernel sources (csrc/admm_chunk.cu, the
+     cluster kernel; csrc/admm_chunk_split.cu, the split kernel;
+     csrc/admm_chunk_stream.cu, the streaming kernel; and
+     csrc/track_chain.cu, the chain scan) side by side with nvcc into
+     build/torch_kernels/, and prints what ptxas reports of each kernel
+     (registers, spills);
   3. kernel: each variant against the plain PyTorch version on random
      operators, with and without a mixed ``active`` mask: the cluster
      kernel at the horizon-50 shapes (n = 248, m = 398), B in {1, 7, 256};
@@ -57,6 +58,19 @@ Phases, each printing one line:
      at horizon 50 on 7 hairpin windows against the fixture's
      ``multi_track/*``, then ``get_control_grid`` at S = 36 (252
      scenarios): one cold and five warm steps, every scenario solved.
+  10. perception: the shipped FPN checkpoint read by the port's msgpack
+     reader (parameter count, stored dtype); the IoU gate of
+     tests/test_assets.py at 320x192 in fp32 and bf16, the card's fp32
+     mask against the port's on the CPU, the bf16 mask against the fp32
+     one, and the card's fp32 polylines against the CPU's; the chain-scan
+     kernel (csrc/track_chain.cu) bit-equal to its plain version at
+     1280x736 on masks the sim renders at 16 poses and on four
+     adversarial masks scaled up, at bands 4 and 1, both timed;
+     perception per frame at 1280x736 bf16 (frames chained through the
+     mask) with its FPN / extraction split; the camera-to-command loop
+     (``bench/perception_loop.perception_in_loop``) for 40 frames: every
+     solve solved, the car within the 5 m half width, one chain-scan
+     launch per frame, the cluster ADMM kernel launched.
 Then the kernels line, the card line and, last, the result line. Any
 failure raises and the exit code is not 0. Without a CUDA device it
 exits with code 2 and prints no result.
@@ -89,6 +103,21 @@ RACELINE_BATCH, RACELINE_STEPS = 4, 10
 LAP_BATCH, LAP_STEPS = 32, 100
 # the all-tracks grid (phase 9): scenarios per track
 GRID_SCENARIOS = 36
+# perception (phase 10): sim poses of the chain-scan check, frames of
+# the chained per-frame timing and of the loop (bench.py's short form)
+CHAIN_POSES = 16
+PERCEPTION_FRAMES = 30
+LOOP_FRAMES = 40
+# the FPN checkpoint's parameter count (params and batch statistics)
+FPN_PARAMETERS = 13_057_994
+# the IoU gate (tests/test_assets.py) and the mask agreements
+IOU_MIN = 0.85
+CPU_MASK_AGREE_MIN = 0.999
+BF16_MASK_AGREE_MIN = 0.99
+# card vs CPU fp32 polylines at 320x192: the masks agree to a few
+# pixels, and a flipped edge pixel moves a boundary point, so the fit
+# moves by centimetres; a wrong extraction is metres off
+POLYLINE_AGREE_M = 0.5
 N_ITERS, ALPHA = 25, 1.6
 TRACKS = [
     "monza", "spa", "silverstone", "nordschleife",
@@ -202,14 +231,24 @@ def phase_device() -> dict:
 
 
 def phase_build() -> dict:
+    import concurrent.futures
+
     import torch
 
     import acmpc_tpu_torch.ops.admm_chunk as ops
+    import acmpc_tpu_torch.ops.track_chain as chain
     from acmpc_tpu_torch.ops.cuda_build import BUILD_DIR
 
+    dev = torch.cuda.current_device()
     t0 = time.perf_counter()
-    ops._libraries(torch.cuda.current_device())
-    info = {"sources": sorted(ops.SOURCES.values()), "build_s": time.perf_counter() - t0}
+    # every source compiles at once: the chunk kernels' three, the chain's
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for done in [pool.submit(ops._libraries, dev), pool.submit(chain._library, dev)]:
+            done.result()
+    info = {
+        "sources": sorted([*ops.SOURCES.values(), chain.SOURCE]),
+        "build_s": time.perf_counter() - t0,
+    }
     # what ptxas said of each kernel built in this run
     for log in sorted(BUILD_DIR.glob("*.log")):
         if log.stat().st_mtime >= time.time() - info["build_s"] - 5:
@@ -645,13 +684,15 @@ def phase_mapping_single() -> dict:
 
 
 def _counted(fn):
-    """``fn()`` with the launch counts set to 0 just before it; returns
-    (its result, the counts just after)."""
+    """``fn()`` with every kernel's launch count set to 0 just before
+    it; returns (its result, the counts just after)."""
     from acmpc_tpu_torch.ops.admm_chunk import admm_chunk
+    from acmpc_tpu_torch.ops.track_chain import chain_scan
 
     admm_chunk.launches.clear()
+    chain_scan.launches.clear()
     out = fn()
-    return out, dict(admm_chunk.launches)
+    return out, {**admm_chunk.launches, **chain_scan.launches}
 
 
 def _sub_grid(grid, n: int):
@@ -870,13 +911,177 @@ def phase_multi_track() -> dict:
     return info
 
 
-def kernels_line(kernel: dict, main: dict, mapping: dict, sweep: dict, multi: dict) -> dict:
+def _iou(pred: np.ndarray, truth: np.ndarray) -> float:
+    pred, truth = pred == 1, truth.astype(bool)
+    return float((pred & truth).sum() / max((pred | truth).sum(), 1))
+
+
+def _chain_bound(rows: int, width: int) -> tuple[float, str]:
+    """Least time of one chain-scan launch on an H100: its rows read once
+    and its selection written once (a byte each), against about eight
+    integer operations per pixel (run id, seed, stamp, select, store) at
+    the fp32 rate; returns (ms, "bytes" | "operations")."""
+    t_bytes = 2 * rows * width / HBM_BYTES_PER_S
+    t_ops = 8 * rows * width / FP32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_perception() -> dict:
+    """Perception on the card: checkpoint, IoU gate, chain-scan kernel
+    against its plain version at 1280x736, the per-frame time and the
+    camera-to-command loop."""
+    import torch
+
+    from acmpc_tpu_torch.bench import perception_loop as loop
+    from acmpc_tpu_torch.bench.full_lap import closed_loop_mpc
+    from acmpc_tpu_torch.localise.track_map import TrackMap
+    from acmpc_tpu_torch.models.checkpoint import read_checkpoint
+    from acmpc_tpu_torch.ops import track_chain as chain
+    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER
+    from acmpc_tpu_torch.perception.camera import CameraInfo
+    from acmpc_tpu_torch.perception.perceiver import Perceiver
+    from acmpc_tpu_torch.perception.tracks import scan_rows
+    from acmpc_tpu_torch.runtime.sim import SyntheticSimulator
+
+    t_phase = time.perf_counter()
+    info: dict = {}
+
+    # 1. the shipped checkpoint through the port's reader
+    cfg = loop.perception_config()  # 1280x736, bf16, training camera
+    variables = read_checkpoint(ROOT / cfg.model_path)
+    leaves, stack = [], [variables]
+    while stack:
+        for v in stack.pop().values():
+            if isinstance(v, dict):
+                stack.append(v)
+            else:
+                leaves.append(v)
+    n_params = int(sum(v.size for v in leaves))
+    stored = sorted({str(v.dtype) for v in leaves})
+    if n_params != FPN_PARAMETERS:
+        raise RuntimeError(f"checkpoint holds {n_params} parameters, not {FPN_PARAMETERS}")
+    info["checkpoint"] = {"parameters": n_params, "stored_dtypes": stored, "leaves": len(leaves)}
+
+    # 2. the IoU gate of tests/test_assets.py: the same 800-point track,
+    # camera and start, 320x192
+    theta = np.linspace(0, 2 * np.pi, 800, endpoint=False)
+    r = 160.0 + 25.0 * np.sin(2 * theta)
+    ring = np.stack([r * np.cos(theta), r * np.sin(theta)], axis=1)
+    d = np.roll(ring, -1, axis=0) - ring
+    t = d / np.linalg.norm(d, axis=1, keepdims=True)
+    nrm = np.stack([-t[:, 1], t[:, 0]], axis=1)
+    tm = TrackMap(*(torch.tensor(v, dtype=torch.float32) for v in (ring, ring + 5 * nrm, ring - 5 * nrm)))
+    cam = CameraInfo(width=320, height=192, vertical_fov_deg=60.0, position=[0.0, 0.0, 1.2], pitch_deg=9.0)
+    small_sim = SyntheticSimulator(tm, cam, half_width=5.0, start_index=123)
+    truth = small_sim.render_drivable_mask()
+    image = small_sim.render_camera_image(truth)
+    small = dataclasses.replace(
+        cfg, image_width=320, image_height=192, n_rows_to_remove_bonnet=160, n_polyfit_points=200
+    )
+    masks, centres = {}, {}
+    for label, precision, device in (("fp32", "fp32", DEVICE), ("bf16", "bf16", DEVICE), ("cpu_fp32", "fp32", "cpu")):
+        perc = Perceiver(dataclasses.replace(small, precision=precision), variables, device)
+        drivable, _, tracks = perc._run_pipeline(torch.as_tensor(image, device=device))
+        masks[label] = drivable.cpu().numpy()
+        centres[label] = tracks["centre"].cpu().numpy()
+    iou = {k: _iou(masks[k], truth) for k in ("fp32", "bf16")}
+    cpu_agree = float((masks["fp32"] == masks["cpu_fp32"]).mean())
+    bf16_agree = float((masks["bf16"] == masks["fp32"]).mean())
+    centre_err = float(np.abs(centres["fp32"] - centres["cpu_fp32"]).max())
+    if min(iou.values()) <= IOU_MIN:
+        raise RuntimeError(f"shipped model IoU {iou} <= {IOU_MIN}")
+    if cpu_agree < CPU_MASK_AGREE_MIN or bf16_agree < BF16_MASK_AGREE_MIN:
+        raise RuntimeError(f"masks disagree: card/CPU fp32 {cpu_agree}, bf16/fp32 {bf16_agree}")
+    for label, c in centres.items():
+        if c.shape != (small.n_polyfit_points, 2) or not np.isfinite(c).all():
+            raise RuntimeError(f"{label}: centreline of shape {c.shape} or not finite")
+    if centre_err > POLYLINE_AGREE_M:
+        raise RuntimeError(f"card and CPU centrelines differ by {centre_err} m")
+    info["iou_gate"] = {
+        "resolution": "320x192",
+        "iou": iou,
+        "mask_agree_card_cpu_fp32": cpu_agree,
+        "mask_agree_bf16_fp32": bf16_agree,
+        "centre_max_abs_err_card_cpu_m": centre_err,
+    }
+
+    # 3. the chain-scan kernel against its plain version at 1280x736
+    H, W = cfg.image_height, cfg.image_width
+    centre, left, right, lap_m = loop.circuit()
+    sim = loop.make_sim(cfg, centre, left, right)
+    cases = [(f"sim{k}", m, cfg.n_rows_to_remove_bonnet) for k, m in enumerate(loop.sim_masks(sim, centre, CHAIN_POSES))]
+    adversarial, bonnet = loop.adversarial_masks(H, W)
+    cases += [(name, m, bonnet) for name, m in adversarial.items()]
+    checked, selected, max_err = 0, 0, 0
+    timing_rows = {}
+    for name, mask_np, bonnet_row in cases:
+        mask = torch.as_tensor(mask_np, device=DEVICE)
+        for band in (4, 1):
+            _, rows, gap = scan_rows(mask, bonnet_row, band=band)
+            got = chain.chain_scan(rows, gap)
+            want = chain.chain_scan_reference(rows, gap)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                bad = int((got != want).sum())
+                raise RuntimeError(f"chain scan {name} band {band}: {bad} pixels differ from the plain version")
+            checked += 1
+            selected += int(got.sum())
+            max_err = max(max_err, int((got.int() - want.int()).abs().max()))
+            if name == "sim0":
+                timing_rows[band] = (rows, gap)
+    chain_timing = {}
+    for band, (rows, gap) in timing_rows.items():
+        n = rows.shape[0]
+        bound_ms, bound_by = _chain_bound(n, W)
+        chain_timing[f"band{band}"] = {
+            "rows": n,
+            "ms": time_cuda_ms(lambda: chain._launch(rows, gap), reps=50),
+            "plain_ms": time_cuda_ms(lambda: chain.chain_scan_reference(rows, gap), reps=3),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        }
+    info["chain_scan"] = {
+        "resolution": f"{W}x{H}",
+        "masks": len(cases),
+        "comparisons_bit_equal": checked,
+        "pixels_selected": selected,
+        "max_abs_err": max_err,
+        **chain_timing,
+    }
+
+    # 4. perception per frame at 1280x736 bf16, chained through the mask
+    perc = Perceiver(cfg, variables, DEVICE)
+    info["per_frame"] = loop.perception_fps(perc, frames=PERCEPTION_FRAMES)
+
+    # 5. the camera-to-command loop
+    mpc = closed_loop_mpc(DEVICE)
+    run, launches = _counted(lambda: loop.perception_in_loop(perc, mpc, sim, centre, lap_m, LOOP_FRAMES))
+    if run["solve_success"] != 1.0:
+        raise RuntimeError(f"perception loop: solve success {run['solve_success']}")
+    if not run["max_offtrack_m"] < loop.HALF_WIDTH:
+        raise RuntimeError(f"perception loop: the car left the track by {run['max_offtrack_m']} m")
+    # one scan per frame, plus the untimed warm frame
+    if launches.get(chain.TRACK_CHAIN_SCAN, 0) != run["frames"] + 1:
+        raise RuntimeError(f"perception loop: chain-scan launches {launches} for {run['frames']} + 1 frames")
+    if launches.get(CLUSTER, 0) == 0:
+        raise RuntimeError(f"perception loop never launched {CLUSTER}: {launches}")
+    info["loop"] = run
+    info["launches"] = launches
+    info["phase_s"] = time.perf_counter() - t_phase
+    info["card"] = card_line()
+    emit("phase 10 perception", info)
+    return info
+
+
+def kernels_line(kernel: dict, main: dict, mapping: dict, sweep: dict, multi: dict, perception: dict) -> dict:
     """One row per kernel variant: launches from the paths that run it
-    (cluster: phases 4, 8 and 9; split: phase 6; stream: none since the
-    split kernel, so the count from phase 6 is 0), numbers from phase 3
-    at the horizon-50 B = 256 or the mapping shapes (stream: at the
-    mapping shapes, on the split kernel's inputs)."""
+    (cluster: phases 4, 8, 9 and 10; split: phase 6; stream: none since
+    the split kernel, so the count from phase 6 is 0; chain scan: phase
+    10's loop), numbers from phase 3 at the horizon-50 B = 256 or the
+    mapping shapes (stream: at the mapping shapes, on the split kernel's
+    inputs), and for the chain scan from phase 10 at 1280x736, band 4."""
     import acmpc_tpu_torch.ops.admm_chunk as ops
+    import acmpc_tpu_torch.ops.track_chain as chain
 
     def row(name, key, line, path, prefix=""):
         r = kernel[key]
@@ -899,9 +1104,10 @@ def kernels_line(kernel: dict, main: dict, mapping: dict, sweep: dict, multi: di
     h50, h50a = f"n{n50}_B{BATCH}", f"n{n50}_B{BATCH}_active"
     h100, h100a = f"n{n100}_B{MAPPING_BATCH}", f"n{n100}_B{MAPPING_BATCH}_active"
     cluster_paths = collections.Counter()
-    for path in (main, sweep, multi):
+    for path in (main, sweep, multi, perception):
         cluster_paths.update(path["launches"])
     cluster_paths = {"launches": cluster_paths}
+    scan = perception["chain_scan"]["band4"]
     return {
         "kernels": [
             row(ops.CLUSTER, h50, 99, cluster_paths),
@@ -910,6 +1116,19 @@ def kernels_line(kernel: dict, main: dict, mapping: dict, sweep: dict, multi: di
             row(ops.SPLIT_ACTIVE, h100a, 103, mapping),
             row(ops.STREAM, h100, 99, mapping, prefix="stream_"),
             row(ops.STREAM_ACTIVE, h100a, 103, mapping, prefix="stream_"),
+            {
+                "name": chain.TRACK_CHAIN_SCAN,
+                "route": "cuda",
+                "source": f"acmpc_tpu_torch/csrc/{chain.SOURCE}",
+                "replaces": "acmpc_tpu/perception/tracks.py:121",
+                "launches": perception["launches"].get(chain.TRACK_CHAIN_SCAN, 0),
+                "max_abs_err": perception["chain_scan"]["max_abs_err"],
+                "ms": scan["ms"],
+                "plain_ms": scan["plain_ms"],
+                "bound_ms": scan["bound_ms"],
+                "bound_by": scan["bound_by"],
+                "library_ms": None,
+            },
         ]
     }
 
@@ -933,7 +1152,8 @@ def main() -> int:
     phase_mapping_single()
     sweep = phase_lap_sweep()
     multi = phase_multi_track()
-    print(json.dumps(kernels_line(kernel, main_info, mapping, sweep, multi)))
+    perception = phase_perception()
+    print(json.dumps(kernels_line(kernel, main_info, mapping, sweep, multi, perception)))
     print(card_line())
     print(json.dumps({
         "ok": True,

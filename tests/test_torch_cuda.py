@@ -393,3 +393,120 @@ def test_multi_track_on_card_matches_golden(cuda_device):
             getattr(out, field).cpu().numpy(), golden[f"multi_track/{field}"],
             rtol=5e-3, atol=5e-3, err_msg=field,
         )
+
+
+# -- perception: the chain-scan kernel and the Perceiver on the card
+def _perception_cases(n_poses: int = 4):
+    """(mask, bonnet row) at 1280x736: the four adversarial masks scaled
+    up, and masks the port's sim renders at ``n_poses`` poses of the
+    perception loop's circuit."""
+    from acmpc_tpu_torch.bench import perception_loop as loop
+
+    cfg = loop.perception_config()
+    masks, bonnet = loop.adversarial_masks(cfg.image_height, cfg.image_width)
+    cases = [(m, bonnet) for m in masks.values()]
+    centre, left, right, _ = loop.circuit()
+    sim = loop.make_sim(cfg, centre, left, right)
+    cases += [(m, cfg.n_rows_to_remove_bonnet) for m in loop.sim_masks(sim, centre, n_poses)]
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [1, 4])
+def test_chain_kernel_matches_plain_on_card(cuda_device, band):
+    from acmpc_tpu_torch.ops.track_chain import TRACK_CHAIN_SCAN, chain_scan, chain_scan_reference
+    from acmpc_tpu_torch.perception.tracks import scan_rows
+
+    cases = _perception_cases()
+    chain_scan.launches.clear()
+    for mask, bonnet in cases:
+        _, rows, gap = scan_rows(torch.as_tensor(mask, device=cuda_device), bonnet, band=band)
+        got = chain_scan(rows, gap)
+        assert got.dtype == torch.bool and got.shape == rows.shape
+        assert torch.equal(got, chain_scan_reference(rows, gap))
+        assert torch.equal(got.cpu(), chain_scan(rows.cpu(), gap))
+        # a uint8 view of the same rows gives the same chain
+        assert torch.equal(chain_scan(rows.to(torch.uint8), gap), got)
+    assert dict(chain_scan.launches) == {TRACK_CHAIN_SCAN: 2 * len(cases)}
+
+
+@pytest.mark.cuda
+def test_chain_kernel_gaps_and_widths_on_card(cuda_device):
+    from acmpc_tpu_torch.ops.track_chain import chain_scan, chain_scan_reference
+
+    rng = np.random.default_rng(0)
+    frames = rng.random((3, 40, 1280)) < 0.6
+    for r in range(38, -1, -1):  # runs that merge, split and break
+        frames[:, r] |= frames[:, r + 1] & (rng.random((3, 1280)) < 0.5)
+    for gap in (0, 1, 3):
+        for frame in frames:
+            rows = torch.as_tensor(frame, device=cuda_device)
+            assert torch.equal(chain_scan(rows, gap), chain_scan_reference(rows, gap))
+    # widths that leave threads without columns, and one column
+    for w in (1, 7, 300, 1281):
+        rows = torch.as_tensor(rng.random((12, w)) < 0.7, device=cuda_device)
+        assert torch.equal(chain_scan(rows, 2), chain_scan_reference(rows, 2))
+
+
+@pytest.mark.cuda
+def test_chain_kernel_refuses_bad_rows_on_card(cuda_device):
+    from acmpc_tpu_torch.ops import track_chain
+
+    track_chain.chain_scan.launches.clear()
+    good = torch.ones((8, 64), dtype=torch.bool, device=cuda_device)
+    bad = [
+        (good.cpu(), ValueError),  # the kernel's entry takes CUDA tensors only
+        (good.float(), TypeError),
+        (good[0], ValueError),
+        (good[None].expand(2, 8, 64).contiguous(), ValueError),  # one frame only
+        (good[None, None], ValueError),
+        (good.T, ValueError),
+    ]
+    for rows, error in bad:
+        with pytest.raises(error):
+            track_chain._launch(rows, 1)
+    for rows, error in bad[1:]:
+        with pytest.raises(error):
+            track_chain.chain_scan(rows, 1)
+    assert sum(track_chain.chain_scan.launches.values()) == 0
+
+
+@pytest.mark.cuda
+def test_connected_runs_launch_the_kernel_once_on_card(cuda_device):
+    from acmpc_tpu_torch.ops.track_chain import TRACK_CHAIN_SCAN, chain_scan
+    from acmpc_tpu_torch.perception.tracks import select_vehicle_connected_runs
+
+    mask, bonnet = _perception_cases(1)[-1]
+    chain_scan.launches.clear()
+    got = select_vehicle_connected_runs(torch.as_tensor(mask, device=cuda_device), bonnet, band=4)
+    want = select_vehicle_connected_runs(torch.as_tensor(mask), bonnet, band=4)
+    assert dict(chain_scan.launches) == {TRACK_CHAIN_SCAN: 1}
+    assert got.dtype == torch.uint8 and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_perceiver_on_card_matches_cpu_fp32(cuda_device):
+    # the shipped checkpoint at 320x192 in fp32 (TF32 off): cuDNN and the
+    # CPU sum each convolution in other orders, so only near-tie pixels
+    # may flip; a flipped edge pixel moves a boundary point, hence the
+    # polylines' 0.05 m (tests/test_torch_perception.py's tolerance for it)
+    from acmpc_tpu_torch.bench import perception_loop as loop
+    from acmpc_tpu_torch.ops.track_chain import TRACK_CHAIN_SCAN, chain_scan
+    from acmpc_tpu_torch.perception.perceiver import Perceiver
+
+    cfg = loop.perception_config(320, 192, "fp32")
+    centre, left, right, _ = loop.circuit()
+    frame = loop.make_sim(cfg, centre, left, right).reset()["image"]
+    out = {}
+    chain_scan.launches.clear()
+    for device in ("cpu", cuda_device):
+        perc = Perceiver(cfg, device=device)
+        drivable, semantics, tracks = perc._run_pipeline(torch.as_tensor(frame, device=device))
+        assert drivable.device.type == torch.device(device).type
+        out[str(device)] = (drivable.cpu(), semantics.cpu(), {k: v.cpu() for k, v in tracks.items()})
+    assert dict(chain_scan.launches) == {TRACK_CHAIN_SCAN: 1}
+    (d_gpu, s_gpu, t_gpu), (d_cpu, s_cpu, t_cpu) = out[str(cuda_device)], out["cpu"]
+    assert (d_gpu == d_cpu).float().mean() >= 0.999
+    assert (s_gpu == s_cpu).float().mean() >= 0.999
+    for key in ("left", "right", "centre"):
+        torch.testing.assert_close(t_gpu[key], t_cpu[key], rtol=1e-3, atol=0.05)
