@@ -60,15 +60,16 @@ def _layers(mpc, states, refs):
     return new, diags, seconds
 
 
-def device_time(prof):
+def device_time(prof, exclude=()):
     """Device-side events of a ``torch.profiler`` run (kernels, copies,
     sets; CPU ops and record_function ranges also carry device time and
-    would count twice): the busy microseconds, the union of their
-    intervals, and {name: [microseconds, count]}."""
+    would count twice), less those named in ``exclude`` (the device-side
+    copies of record_function ranges): the busy microseconds, the union
+    of their intervals, and {name: [microseconds, count]}."""
     per_kernel: dict[str, list] = {}
     intervals = []
     for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if evt.device_type != torch.autograd.DeviceType.CUDA or evt.name in exclude:
             continue
         start, end = evt.time_range.start, evt.time_range.end
         intervals.append((start, end))

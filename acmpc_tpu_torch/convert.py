@@ -2,7 +2,8 @@
 
 Values cross as numpy arrays, so neither side imports the other: a
 caller turns a JAX ``MPCState`` (or a lap sweep's ``CarState``,
-``SweepGrid`` or ``TrackMap``, or the FPN's Flax variables) into a
+``SweepGrid`` or ``TrackMap``, the FPN's Flax variables, or a particle
+filter's ``PFState``) into a
 mapping of numpy arrays (field name -> array, or the variables tree with
 numpy leaves) and hands it here, and back.
 """
@@ -18,6 +19,7 @@ import torch
 from acmpc_tpu_torch.bench.lap_sweep import CarState, SweepGrid
 from acmpc_tpu_torch.config.schema import PerceptionConfig
 from acmpc_tpu_torch.device import resolve_device
+from acmpc_tpu_torch.localise.particle_filter import PFState
 from acmpc_tpu_torch.localise.track_map import TrackMap
 from acmpc_tpu_torch.models.fpn_resnet18 import state_dict_from_flax
 from acmpc_tpu_torch.mpc.spatial_mpc import MPCState
@@ -89,6 +91,29 @@ def track_map_from_numpy(
 ) -> TrackMap:
     """A ``TrackMap`` from its centre, left and right (M, 2) polylines."""
     return _from_numpy(TrackMap, arrays, device)
+
+
+_PF_STATE_DTYPES = {
+    "valid": torch.bool,
+    "converged": torch.bool,
+    "previously_converged": torch.bool,
+    "seeded": torch.bool,
+    "seed_obs_count": torch.int32,
+}
+
+
+def pf_state_from_numpy(
+    arrays: Mapping[str, np.ndarray], device: torch.device | str | None = None
+) -> PFState:
+    """A particle filter's ``PFState`` from numpy arrays keyed by field
+    name (fp32, bool flags, int32 scan count). A JAX state's PRNG key, if
+    present, is left behind: the port's draws are the caller's."""
+    return _from_numpy(PFState, arrays, device, _PF_STATE_DTYPES)
+
+
+def pf_state_to_numpy(state: PFState) -> dict[str, np.ndarray]:
+    """Field name -> numpy array (on the host) of a ``PFState``."""
+    return _to_numpy(state)
 
 
 def qp_from_numpy(P, q, A, l, u, device: torch.device | str | None = None):

@@ -57,21 +57,22 @@ def nearest_point(points: torch.Tensor, polyline: torch.Tensor, refine: int = 32
     """Brute-force nearest neighbour: points (..., K, 2) against polyline
     (M, 2). Returns (distances (..., K), indices (..., K)).
 
-    Coarse: d^2 = |p|^2 - 2 p.m + |m|^2, the cross term one (K, M)
-    matrix product. It must be full fp32 (TF32 is off, package
-    ``__init__``): at km-scale coordinates the terms reach ~1e6 and the
-    cancellation leaves metres of signal, which a 10-bit mantissa turns
-    into tens of metres of index error. Refine: exact squared differences
-    over a +-``refine`` index window around the coarse argmin, free of
-    cancellation, so the index is the true nearest neighbour whenever the
-    coarse pick lands within ``refine`` points of it.
+    Coarse: the argmin over the map of |m|^2 - 2 p.m, which is d^2 less
+    |p|^2, the same for every map point of a row; one (K, M) matrix
+    product (of p with -2 m, exact in fp32) and one add, in place. It
+    must be full fp32 (TF32 is off, package ``__init__``): at km-scale
+    coordinates the terms reach ~1e6 and the cancellation leaves metres
+    of signal, which a 10-bit mantissa turns into tens of metres of index
+    error. Refine: exact squared differences over a +-``refine`` index
+    window around the coarse argmin, free of cancellation, so the index
+    is the true nearest neighbour whenever the coarse pick lands within
+    ``refine`` points of it.
     """
     m = polyline.shape[0]
-    p2 = torch.sum(points**2, dim=-1, keepdim=True)  # (..., K, 1)
     m2 = torch.sum(polyline**2, dim=-1)  # (M,)
-    cross = torch.matmul(points, polyline.T)
-    d2 = p2 - 2.0 * cross + m2
-    coarse = torch.argmin(d2, dim=-1)  # (..., K)
+    d2 = torch.matmul(points, -2.0 * polyline.T)  # (..., K, M)
+    d2 += m2
+    coarse = torch.min(d2, dim=-1).indices  # (..., K), the first minimum
     offs = torch.arange(-refine, refine + 1, device=points.device)
     cand_idx = torch.remainder(coarse[..., None] + offs, m)  # (..., K, 2R+1)
     cand = polyline[cand_idx]  # (..., K, 2R+1, 2)

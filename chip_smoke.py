@@ -70,7 +70,22 @@ Phases, each printing one line:
      mask) with its FPN / extraction split; the camera-to-command loop
      (``bench/perception_loop.perception_in_loop``) for 40 frames: every
      solve solved, the car within the 5 m half width, one chain-scan
-     launch per frame, the cluster ADMM kernel launched.
+     launch per frame, the cluster ADMM kernel launched;
+  11. localisation: the seven configs' localisation blocks parse; the
+     monza filter (500 particles) on the card against the CPU from one
+     state with one set of scripted draws (a predict, an update on a
+     recorded observation, a forced resample; moved resampling draws
+     counted), the blind reset's states for all seven maps; 50 predict +
+     update pairs and 50 facade step + observe pairs with no host sync
+     (``torch.cuda.set_sync_debug_mode("error")``); the replays of
+     monza_synth and monza_realperc in full and nordschleife_synth's first
+     2,000 steps at filter seeds 0-2, each set passing the statistical
+     check against the JAX replays in tests/fixtures/torch_locbench_jax.json
+     (``bench/locbench.check``), with the tracker's dispatch times and the
+     card's per-observation p50/p99 from CUDA events; and,
+     from ``torch.profiler`` over nordschleife's first 200 observations,
+     device busy time and launches per observation, the idle share and the
+     ``nearest_point`` share.
 Then the kernels line, the card line and, last, the result line. Any
 failure raises and the exit code is not 0. Without a CUDA device it
 exits with code 2 and prints no result.
@@ -118,6 +133,12 @@ BF16_MASK_AGREE_MIN = 0.99
 # pixels, and a flipped edge pixel moves a boundary point, so the fit
 # moves by centimetres; a wrong extraction is metres off
 POLYLINE_AGREE_M = 0.5
+# localisation (phase 11): the replays held against the JAX fixture
+# (recording, max_steps) and their filter seeds (the fixture's), and the
+# predict + update pairs run with host syncs an error
+LOC_REPLAYS = (("monza_synth", None), ("monza_realperc", None), ("nordschleife_synth", 2000))
+LOC_SEEDS = (0, 1, 2)
+LOC_SYNC_PAIRS = 50
 N_ITERS, ALPHA = 25, 1.6
 TRACKS = [
     "monza", "spa", "silverstone", "nordschleife",
@@ -1073,6 +1094,60 @@ def phase_perception() -> dict:
     return info
 
 
+def phase_localisation() -> dict:
+    """The particle filter on the card: configs, card against CPU, no host
+    sync, the replays against the JAX fixture, times and the profile."""
+    from acmpc_tpu_torch.bench import locbench
+    from acmpc_tpu_torch.config import load_config
+    from acmpc_tpu_torch.config.schema import LocalisationConfig
+
+    t_phase = time.perf_counter()
+    info: dict = {}
+    # 1. the seven configs' localisation blocks
+    configs = {t: load_config(ROOT / "configs" / f"{t}.yaml").localisation for t in TRACKS}
+    for track, cfg in configs.items():
+        if not isinstance(cfg, LocalisationConfig) or cfg.n_particles <= 0:
+            raise RuntimeError(f"{track}: localisation block parsed to {cfg!r}")
+    info["configs"] = {t: [c.n_particles, c.max_observation_points, c.localised_max_error] for t, c in configs.items()}
+
+    # 2. card against CPU, one call each from one state, the same draws
+    agree = locbench.devices_agree()
+    n_particles = configs["monza"].n_particles
+    for call, row in agree.items():
+        allowed = locbench.MOVED_DRAWS_MAX_SHARE * n_particles if call == "resample" else 0
+        if row["moved"] > allowed or not (row["valid_equal"] and row["converged_equal"]):
+            raise RuntimeError(f"card and CPU {call} disagree: {row}")
+    # the reset's centreline indices are one host array on both devices
+    # (particle_filter.reset_indices); its states are computed on each
+    reset = locbench.reset_states_agree(TRACKS)
+    for track, row in reset.items():
+        if row["max_xy_m"] > locbench.CARD_CPU_XY_M or row["max_yaw_rad"] > locbench.CARD_CPU_YAW_RAD:
+            raise RuntimeError(f"{track}: card and CPU resets disagree: {row}")
+    info["card_vs_cpu"] = {**agree, "reset_states": reset}
+
+    # 3. no host sync
+    info["sync_free"] = locbench.sync_free(pairs=LOC_SYNC_PAIRS)
+
+    # 4, 5. the replays against the fixture, at its three seeds, with
+    # their times
+    fixture = locbench.load_fixture()
+    info["replays"] = {}
+    for recording, max_steps in LOC_REPLAYS:
+        rows = [locbench.replay(recording, seed, max_steps, DEVICE) for seed in LOC_SEEDS]
+        fails = locbench.check(rows, fixture)
+        if fails:
+            raise RuntimeError(f"{recording} replays outside the JAX fixture's bounds: {fails}; {rows}")
+        info["replays"][f"{recording}/{max_steps or 'all'}"] = {
+            "seeds_inside": locbench.seeds_inside(rows, fixture),
+            "rows": rows,
+        }
+    info["profile"] = locbench.profile(device=DEVICE)
+    info["phase_s"] = time.perf_counter() - t_phase
+    info["card"] = card_line()
+    emit("phase 11 localisation", info)
+    return info
+
+
 def kernels_line(kernel: dict, main: dict, mapping: dict, sweep: dict, multi: dict, perception: dict) -> dict:
     """One row per kernel variant: launches from the paths that run it
     (cluster: phases 4, 8, 9 and 10; split: phase 6; stream: none since
@@ -1153,6 +1228,7 @@ def main() -> int:
     sweep = phase_lap_sweep()
     multi = phase_multi_track()
     perception = phase_perception()
+    phase_localisation()
     print(json.dumps(kernels_line(kernel, main_info, mapping, sweep, multi, perception)))
     print(card_line())
     print(json.dumps({

@@ -510,3 +510,35 @@ def test_perceiver_on_card_matches_cpu_fp32(cuda_device):
     assert (s_gpu == s_cpu).float().mean() >= 0.999
     for key in ("left", "right", "centre"):
         torch.testing.assert_close(t_gpu[key], t_cpu[key], rtol=1e-3, atol=0.05)
+
+
+@pytest.mark.cuda
+def test_particle_filter_on_card_matches_cpu(cuda_device):
+    """The monza filter's predict, update and forced resample on the card
+    against the CPU, one call each from one state with one set of
+    scripted draws; and the blind reset on two maps."""
+    from acmpc_tpu_torch.bench import locbench
+
+    agree = locbench.devices_agree()
+    for call, row in agree.items():
+        allowed = locbench.MOVED_DRAWS_MAX_SHARE * 500 if call == "resample" else 0
+        assert row["moved"] <= allowed and row["valid_equal"] and row["converged_equal"], (call, row)
+    for track, row in locbench.reset_states_agree(["monza", "nordschleife"]).items():
+        assert row["max_xy_m"] <= locbench.CARD_CPU_XY_M, track
+        assert row["max_yaw_rad"] <= locbench.CARD_CPU_YAW_RAD, track
+
+
+@pytest.mark.cuda
+def test_particle_filter_update_reads_nothing_back(cuda_device):
+    from acmpc_tpu_torch.bench import locbench
+
+    assert locbench.sync_free(pairs=10)["finite"]
+
+
+@pytest.mark.cuda
+def test_monza_realperc_replays_on_card_within_fixture_bounds(cuda_device):
+    from acmpc_tpu_torch.bench import locbench
+
+    rows = [locbench.replay("monza_realperc", seed, None, cuda_device) for seed in (0, 1, 2)]
+    assert locbench.check(rows, locbench.load_fixture()) == [], rows
+    assert all(row["observation_sync_p50_ms"] is not None for row in rows)

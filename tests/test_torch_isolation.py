@@ -39,13 +39,16 @@ def test_import_pulls_in_no_jax():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["bad"] == []
     # every module of the port was imported, this slice's among them
-    assert len(result["modules"]) >= 47, result["modules"]
+    assert len(result["modules"]) >= 54, result["modules"]
     for name in (
         "localise.track_map", "runtime.commands", "mpc.multi_track",
         "bench.lap_sweep", "bench.full_lap", "bench.lap_step",
         "perception.tracks", "perception.perceiver", "models.fpn_resnet18",
         "models.checkpoint", "ops.track_chain", "runtime.sim",
-        "bench.perception_loop",
+        "bench.perception_loop", "localise.particle_filter", "localise.localiser",
+        "localise.benchmarking", "localise.benchmarking.recording",
+        "localise.benchmarking.tracker", "localise.benchmarking.benchmark",
+        "bench.locbench",
     ):
         assert f"acmpc_tpu_torch.{name}" in result["modules"], name
 
