@@ -8,7 +8,8 @@ may include, the flags, the compiler and the card's architecture: a stale
 build from other source or headers, another compiler or another card is
 never loaded. The compiler's report (``-Xptxas=-v``: registers, shared
 memory and spills of each kernel) is kept beside the library as
-``<name>.log``.
+``<name>.log``. ``defines`` compile a variant of a source (``-D`` flags,
+part of the hash), such as a kernel's stage stamps.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ def _nvcc() -> str:
     return found
 
 
-def build_library(source_name: str, device: torch.device) -> ctypes.CDLL:
+def build_library(source_name: str, device: torch.device, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Compile ``csrc/<source_name>`` for ``device``'s architecture (once
     per content hash) and load it."""
     capability = torch.cuda.get_device_capability(device)
@@ -61,10 +62,11 @@ def build_library(source_name: str, device: torch.device) -> ctypes.CDLL:
         [nvcc, "--version"], check=True, capture_output=True, text=True
     ).stdout
     gencode = f"-gencode=arch=compute_{arch},code=sm_{arch}"
+    flags = (*_FLAGS, *(f"-D{d}" for d in defines))
     digest = hashlib.sha256(source.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
-    digest.update(" ".join((*_FLAGS, gencode)).encode() + version.encode())
+    digest.update(" ".join((*flags, gencode)).encode() + version.encode())
     key = digest.hexdigest()[:16]
     out = BUILD_DIR / f"{source.stem}-sm{arch}-{key}.so"
     if not out.exists():
@@ -75,7 +77,7 @@ def build_library(source_name: str, device: torch.device) -> ctypes.CDLL:
         os.close(fd)
         try:
             done = subprocess.run(
-                [nvcc, gencode, *_FLAGS, "-o", tmp, str(source)],
+                [nvcc, gencode, *flags, "-o", tmp, str(source)],
                 check=True,
                 capture_output=True,
                 text=True,

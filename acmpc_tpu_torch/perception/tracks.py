@@ -2,9 +2,9 @@
 centreline, on the device.
 
 Counterpart of ``acmpc_tpu/perception/tracks.py``: keep the drivable run
-chain connected to the vehicle (``select_vehicle_connected_runs``, its
-bottom-up scan the CUDA kernel of ``ops/track_chain.py``), take each
-row's leftmost and rightmost drivable column, project them to the ground
+chain connected to the vehicle and take each row's leftmost and
+rightmost column of it (``chain_edges``, one CUDA kernel launch of
+``ops/track_chain.py`` a frame), project them to the ground
 through the camera homography, crop to the BEV field of view, and fit a
 weighted degree-2 polynomial x = p(y) to each boundary and to their
 midline. Every step is fixed-shape: rows with no track carry a zero
@@ -21,7 +21,8 @@ import torch
 
 from acmpc_tpu_torch.config.schema import PerceptionConfig
 from acmpc_tpu_torch.device import resolve_device
-from acmpc_tpu_torch.ops.track_chain import chain_scan
+# scan_rows and row_edge_columns are also this module's API, as in the JAX package
+from acmpc_tpu_torch.ops.track_chain import chain_edges, row_edge_columns, scan_rows  # noqa: F401
 from acmpc_tpu_torch.perception.camera import CameraInfo
 
 # BEV field of view crop
@@ -70,46 +71,9 @@ def select_vehicle_connected_runs(
     ``band > 1`` runs the scan on the OR of each ``band``-row block (the
     scan's step count divided by ``band``) and ANDs the block selection
     back with the full-resolution mask; the gap tolerance rounds to whole
-    bands. The banding, the AND and the fallback are PyTorch ops around
-    the one scan launch."""
-    H = mask.shape[0]
-    usable, rows, gap = scan_rows(mask, bonnet_row, gap_tolerance, band)
-    sel = chain_scan(rows, gap)
-    if band > 1:
-        sel = sel.repeat_interleave(band, dim=0)[:H]
-    sel = sel & usable
-    return torch.where(sel.any(), sel, mask > 0).to(mask.dtype)
-
-
-def scan_rows(mask: torch.Tensor, bonnet_row: int, gap_tolerance: int = 3, band: int = 1):
-    """What ``select_vehicle_connected_runs`` hands the scan: (the usable
-    full-resolution mask, the (ceil(H / band), W) contiguous bool rows,
-    the gap in rows of the scan)."""
-    H, W = mask.shape
-    usable = (mask > 0) & (torch.arange(H, device=mask.device) < bonnet_row)[:, None]
-    if band <= 1:
-        # elementwise ops keep a transposed mask's strides
-        return usable, usable.contiguous(), gap_tolerance
-    hb = -(-H // band)
-    padded = usable
-    if hb * band > H:
-        padded = torch.cat([usable, usable.new_zeros((hb * band - H, W))])
-    bands = padded.reshape(hb, band, W).any(dim=1)
-    return usable, bands, max(1, round(gap_tolerance / band))
-
-
-def row_edge_columns(mask: torch.Tensor):
-    """Per-row leftmost/rightmost drivable column. mask: (H, W) 0/1.
-    Returns (left_cols, right_cols, row_valid); a row with no drivable
-    pixel has both columns 0 (the first extreme of a constant row)."""
-    w = mask.shape[1]
-    ascending = torch.arange(1, w + 1, dtype=torch.int32, device=mask.device)
-    weighted = mask.to(torch.int32) * ascending[None, :]
-    right = torch.argmax(weighted, dim=1)
-    sentinel = torch.where(weighted == 0, w + 1, weighted)
-    left = torch.argmin(sentinel, dim=1)
-    row_valid = torch.any(mask > 0, dim=1)
-    return left, right, row_valid
+    bands. The selected mask of ``chain_edges``: one kernel launch on
+    the card."""
+    return chain_edges(mask, bonnet_row, gap_tolerance, band, return_mask=True)[3]
 
 
 def _edge_validity(cols, rows, row_valid, cfg: TrackExtractionConfig):
@@ -214,12 +178,12 @@ class TrackLimitExtractor:
         cfg = self.cfg
         rows = torch.arange(mask.shape[0], device=mask.device)
         if cfg.connected_runs:
-            mask = select_vehicle_connected_runs(
-                mask,
-                cfg.n_rows_to_remove_bonnet,
-                band=cfg.connectivity_band,
+            # the connected run chain and its row edges, one launch
+            left_cols, right_cols, row_valid = chain_edges(
+                mask, cfg.n_rows_to_remove_bonnet, band=cfg.connectivity_band
             )
-        left_cols, right_cols, row_valid = row_edge_columns(mask)
+        else:
+            left_cols, right_cols, row_valid = row_edge_columns(mask)
 
         left_valid = _edge_validity(left_cols, rows, row_valid, cfg)
         right_valid = _edge_validity(right_cols, rows, row_valid, cfg)

@@ -9,10 +9,11 @@ and the CUDA toolkit:
 Phases, each printing one line:
   1. device: card name and power limit (nvidia-smi), torch/CUDA versions,
      TF32 flags (must be off);
-  2. build: compiles the four kernel sources (csrc/admm_chunk.cu, the
+  2. build: compiles the five kernel sources (csrc/admm_chunk.cu, the
      cluster kernel; csrc/admm_chunk_split.cu, the split kernel;
-     csrc/admm_chunk_stream.cu, the streaming kernel; and
-     csrc/track_chain.cu, the chain scan) side by side with nvcc into
+     csrc/admm_chunk_stream.cu, the streaming kernel;
+     csrc/track_chain.cu, the chain scan; and csrc/track_chain_edges.cu,
+     the fused chain-edges kernel) side by side with nvcc into
      build/torch_kernels/, and prints what ptxas reports of each kernel
      (registers, spills);
   3. kernel: each variant against the plain PyTorch version on random
@@ -63,14 +64,20 @@ Phases, each printing one line:
      tests/test_assets.py at 320x192 in fp32 and bf16, the card's fp32
      mask against the port's on the CPU, the bf16 mask against the fp32
      one, and the card's fp32 polylines against the CPU's; the chain-scan
-     kernel (csrc/track_chain.cu) bit-equal to its plain version at
-     1280x736 on masks the sim renders at 16 poses and on four
-     adversarial masks scaled up, at bands 4 and 1, both timed;
+     kernel (csrc/track_chain.cu, on no path) bit-equal to its plain
+     version at 1280x736 on masks the sim renders at 16 poses and on four
+     adversarial masks scaled up, at bands 4 and 1, both timed; the fused
+     chain-edges kernel (csrc/track_chain_edges.cu) bit-equal to its
+     plain version (edges and mask) on the same masks and bands, timed in
+     turns with the composite of PyTorch ops around the scan kernel and
+     with the plain version, beside its bound and its chain floor;
      perception per frame at 1280x736 bf16 (frames chained through the
      mask) with its FPN / extraction split; the camera-to-command loop
      (``bench/perception_loop.perception_in_loop``) for 40 frames: every
-     solve solved, the car within the 5 m half width, one chain-scan
-     launch per frame, the cluster ADMM kernel launched;
+     solve solved, the car within the 5 m half width, one chain-edges
+     launch per frame and no chain-scan launch, the cluster ADMM kernel
+     launched; the loop's launches and busy time per frame under
+     ``torch.profiler`` (10 frames);
   11. localisation: the seven configs' localisation blocks parse; the
      monza filter (500 particles) on the card against the CPU from one
      state with one set of scripted draws (a predict, an update on a
@@ -119,10 +126,15 @@ LAP_BATCH, LAP_STEPS = 32, 100
 # the all-tracks grid (phase 9): scenarios per track
 GRID_SCENARIOS = 36
 # perception (phase 10): sim poses of the chain-scan check, frames of
-# the chained per-frame timing and of the loop (bench.py's short form)
+# the chained per-frame timing, of the loop (bench.py's short form) and
+# of its profile
 CHAIN_POSES = 16
 PERCEPTION_FRAMES = 30
 LOOP_FRAMES = 40
+PROFILE_FRAMES = 10
+# one dependent shared-memory or shuffle round trip of the chain's walk,
+# in SM cycles: the floor of a band step
+CHAIN_STEP_CYCLES = 30
 # the FPN checkpoint's parameter count (params and batch statistics)
 FPN_PARAMETERS = 13_057_994
 # the IoU gate (tests/test_assets.py) and the mask agreements
@@ -262,12 +274,13 @@ def phase_build() -> dict:
 
     dev = torch.cuda.current_device()
     t0 = time.perf_counter()
-    # every source compiles at once: the chunk kernels' three, the chain's
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for done in [pool.submit(ops._libraries, dev), pool.submit(chain._library, dev)]:
+    # every source compiles at once: the chunk kernels' three, the chain's two
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(f, dev) for f in (ops._libraries, chain._library, chain._edges_library)]
+        for done in builds:
             done.result()
     info = {
-        "sources": sorted([*ops.SOURCES.values(), chain.SOURCE]),
+        "sources": sorted([*ops.SOURCES.values(), chain.SOURCE, chain.EDGES_SOURCE]),
         "build_s": time.perf_counter() - t0,
     }
     # what ptxas said of each kernel built in this run
@@ -708,12 +721,13 @@ def _counted(fn):
     """``fn()`` with every kernel's launch count set to 0 just before
     it; returns (its result, the counts just after)."""
     from acmpc_tpu_torch.ops.admm_chunk import admm_chunk
-    from acmpc_tpu_torch.ops.track_chain import chain_scan
+    from acmpc_tpu_torch.ops.track_chain import chain_edges, chain_scan
 
     admm_chunk.launches.clear()
     chain_scan.launches.clear()
+    chain_edges.launches.clear()
     out = fn()
-    return out, {**admm_chunk.launches, **chain_scan.launches}
+    return out, {**admm_chunk.launches, **chain_scan.launches, **chain_edges.launches}
 
 
 def _sub_grid(grid, n: int):
@@ -947,12 +961,34 @@ def _chain_bound(rows: int, width: int) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _edges_bound(height: int, width: int, with_mask: bool) -> tuple[float, str]:
+    """Least time of one chain-edges launch on an H100: the mask read once
+    (a byte a pixel), each row's left and right (int64) and valid (bool)
+    written once, and the selected mask when asked, against about eight
+    integer operations per pixel at the fp32 rate; returns (ms, "bytes" |
+    "operations")."""
+    n_bytes = height * width * (2 if with_mask else 1) + 17 * height
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = 8 * height * width / FP32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sm_clocks_mhz() -> dict:
+    """The card's current and maximum SM clock (nvidia-smi), in MHz."""
+    now, most = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0].split(",")
+    return {"sm_clock_mhz": float(now), "max_sm_clock_mhz": float(most)}
+
+
 def phase_perception() -> dict:
     """Perception on the card: checkpoint, IoU gate, chain-scan kernel
     against its plain version at 1280x736, the per-frame time and the
     camera-to-command loop."""
     import torch
 
+    from acmpc_tpu_torch.bench import chain_stages
     from acmpc_tpu_torch.bench import perception_loop as loop
     from acmpc_tpu_torch.bench.full_lap import closed_loop_mpc
     from acmpc_tpu_torch.localise.track_map import TrackMap
@@ -1070,6 +1106,56 @@ def phase_perception() -> dict:
         **chain_timing,
     }
 
+    # 3b. the fused chain-edges kernel against its plain version, edges
+    # and mask, on the same masks and bands
+    checked, edges_err = 0, 0
+    for name, mask_np, bonnet_row in cases:
+        mask = torch.as_tensor(mask_np, device=DEVICE)
+        for band in (4, 1):
+            got = chain.chain_edges(mask, bonnet_row, 3, band, return_mask=True)
+            want = chain.chain_edges_reference(mask, bonnet_row, 3, band, return_mask=True)
+            torch.cuda.synchronize()
+            for label, g, w in zip(("left", "right", "valid", "mask"), got, want):
+                if g.dtype != w.dtype or not torch.equal(g, w):
+                    bad = int((g.long() != w.long()).sum()) if g.shape == w.shape else "shape"
+                    raise RuntimeError(f"chain edges {name} band {band}: {label} differs from the plain version ({bad})")
+                edges_err = max(edges_err, int((g.long() - w.long()).abs().max()))
+            checked += 1
+    # timed on sim0 in turns: fused kernel, the composite around the scan
+    # kernel, the plain version, then back
+    mask = torch.as_tensor(cases[0][1], device=DEVICE)
+    bonnet_row = cases[0][2]
+    edges_timing = {}
+    for band in (4, 1):
+        runs = {
+            "ms": (lambda: chain._launch_edges(mask, bonnet_row, 3, band, False), 100),
+            "composite_ms": (lambda: chain.chain_edges_reference(mask, bonnet_row, 3, band, scan=chain._launch), 50),
+            "plain_ms": (lambda: chain.chain_edges_reference(mask, bonnet_row, 3, band), 2),
+        }
+        turns = {key: [] for key in runs}
+        for key in [*runs, *reversed(runs)]:
+            fn, reps = runs[key]
+            turns[key].append(time_cuda_ms(fn, reps=reps))
+        clocks = sm_clocks_mhz()
+        walked = chain_stages.bands_walked(mask, bonnet_row, band)
+        bound_ms, bound_by = _edges_bound(H, W, with_mask=False)
+        edges_timing[f"band{band}"] = {
+            **{key: sum(t) / len(t) for key, t in turns.items()},
+            "turns_ms": turns,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "bands_walked": walked,
+            "chain_floor_ms": walked * CHAIN_STEP_CYCLES / (clocks["max_sm_clock_mhz"] * 1e3),
+            **clocks,
+        }
+    info["chain_edges"] = {
+        "resolution": f"{W}x{H}",
+        "masks": len(cases),
+        "comparisons_bit_equal": checked,
+        "max_abs_err": edges_err,
+        **edges_timing,
+    }
+
     # 4. perception per frame at 1280x736 bf16, chained through the mask
     perc = Perceiver(cfg, variables, DEVICE)
     info["per_frame"] = loop.perception_fps(perc, frames=PERCEPTION_FRAMES)
@@ -1081,13 +1167,17 @@ def phase_perception() -> dict:
         raise RuntimeError(f"perception loop: solve success {run['solve_success']}")
     if not run["max_offtrack_m"] < loop.HALF_WIDTH:
         raise RuntimeError(f"perception loop: the car left the track by {run['max_offtrack_m']} m")
-    # one scan per frame, plus the untimed warm frame
-    if launches.get(chain.TRACK_CHAIN_SCAN, 0) != run["frames"] + 1:
-        raise RuntimeError(f"perception loop: chain-scan launches {launches} for {run['frames']} + 1 frames")
+    # one fused extraction per frame, plus the untimed warm frame; the scan
+    # kernel is on no path
+    if launches.get(chain.TRACK_CHAIN_EDGES, 0) != run["frames"] + 1 or chain.TRACK_CHAIN_SCAN in launches:
+        raise RuntimeError(f"perception loop: chain launches {launches} for {run['frames']} + 1 frames")
     if launches.get(CLUSTER, 0) == 0:
         raise RuntimeError(f"perception loop never launched {CLUSTER}: {launches}")
     info["loop"] = run
     info["launches"] = launches
+    # the loop's launches and busy time per frame
+    profile = loop.profile_loop(perc, mpc, sim, frames=PROFILE_FRAMES)
+    info["loop_profile"] = {k: v for k, v in profile.items() if not isinstance(v, list) or k == "top_kernels_ms_per_frame"}
     info["phase_s"] = time.perf_counter() - t_phase
     info["card"] = card_line()
     emit("phase 10 perception", info)
@@ -1151,10 +1241,12 @@ def phase_localisation() -> dict:
 def kernels_line(kernel: dict, main: dict, mapping: dict, sweep: dict, multi: dict, perception: dict) -> dict:
     """One row per kernel variant: launches from the paths that run it
     (cluster: phases 4, 8, 9 and 10; split: phase 6; stream: none since
-    the split kernel, so the count from phase 6 is 0; chain scan: phase
-    10's loop), numbers from phase 3 at the horizon-50 B = 256 or the
-    mapping shapes (stream: at the mapping shapes, on the split kernel's
-    inputs), and for the chain scan from phase 10 at 1280x736, band 4."""
+    the split kernel, so the count from phase 6 is 0; chain edges: phase
+    10's loop; chain scan: none since the chain-edges kernel, so the count
+    from phase 10's loop is 0), numbers from phase 3 at the horizon-50
+    B = 256 or the mapping shapes (stream: at the mapping shapes, on the
+    split kernel's inputs), and for both chain kernels from phase 10 at
+    1280x736, band 4."""
     import acmpc_tpu_torch.ops.admm_chunk as ops
     import acmpc_tpu_torch.ops.track_chain as chain
 
@@ -1183,6 +1275,7 @@ def kernels_line(kernel: dict, main: dict, mapping: dict, sweep: dict, multi: di
         cluster_paths.update(path["launches"])
     cluster_paths = {"launches": cluster_paths}
     scan = perception["chain_scan"]["band4"]
+    edges = perception["chain_edges"]["band4"]
     return {
         "kernels": [
             row(ops.CLUSTER, h50, 99, cluster_paths),
@@ -1202,6 +1295,19 @@ def kernels_line(kernel: dict, main: dict, mapping: dict, sweep: dict, multi: di
                 "plain_ms": scan["plain_ms"],
                 "bound_ms": scan["bound_ms"],
                 "bound_by": scan["bound_by"],
+                "library_ms": None,
+            },
+            {
+                "name": chain.TRACK_CHAIN_EDGES,
+                "route": "cuda",
+                "source": f"acmpc_tpu_torch/csrc/{chain.EDGES_SOURCE}",
+                "replaces": "acmpc_tpu/perception/tracks.py:62",
+                "launches": perception["launches"].get(chain.TRACK_CHAIN_EDGES, 0),
+                "max_abs_err": perception["chain_edges"]["max_abs_err"],
+                "ms": edges["ms"],
+                "plain_ms": edges["plain_ms"],
+                "bound_ms": edges["bound_ms"],
+                "bound_by": edges["bound_by"],
                 "library_ms": None,
             },
         ]

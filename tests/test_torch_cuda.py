@@ -473,15 +473,136 @@ def test_chain_kernel_refuses_bad_rows_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_connected_runs_launch_the_kernel_once_on_card(cuda_device):
-    from acmpc_tpu_torch.ops.track_chain import TRACK_CHAIN_SCAN, chain_scan
+    # the connected runs are the fused kernel's mask; the scan kernel is
+    # on no path
+    from acmpc_tpu_torch.ops.track_chain import TRACK_CHAIN_EDGES, chain_edges, chain_scan
     from acmpc_tpu_torch.perception.tracks import select_vehicle_connected_runs
 
     mask, bonnet = _perception_cases(1)[-1]
     chain_scan.launches.clear()
+    chain_edges.launches.clear()
     got = select_vehicle_connected_runs(torch.as_tensor(mask, device=cuda_device), bonnet, band=4)
     want = select_vehicle_connected_runs(torch.as_tensor(mask), bonnet, band=4)
-    assert dict(chain_scan.launches) == {TRACK_CHAIN_SCAN: 1}
+    assert dict(chain_edges.launches) == {TRACK_CHAIN_EDGES: 1}
+    assert sum(chain_scan.launches.values()) == 0
     assert got.dtype == torch.uint8 and torch.equal(got.cpu(), want)
+
+
+# -- the fused chain-edges kernel (csrc/track_chain_edges.cu)
+
+
+def _assert_edges_equal(got, want):
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and g.device == w.device
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [1, 2, 3, 4])
+def test_chain_edges_kernel_matches_plain_on_card(cuda_device, band):
+    from acmpc_tpu_torch.ops.track_chain import TRACK_CHAIN_EDGES, chain_edges, chain_edges_reference
+
+    cases = _perception_cases()
+    chain_edges.launches.clear()
+    for mask, bonnet in cases:
+        for dtype in (torch.uint8, torch.bool):
+            m = torch.as_tensor(mask, device=cuda_device).to(dtype)
+            want = chain_edges_reference(m, bonnet, 3, band, return_mask=True)
+            _assert_edges_equal(chain_edges(m, bonnet, 3, band, return_mask=True), want)
+            _assert_edges_equal(chain_edges(m, bonnet, 3, band), want[:3])
+    assert dict(chain_edges.launches) == {TRACK_CHAIN_EDGES: 4 * len(cases)}
+
+
+def _edge_frames(rng, H, W):
+    """Random streaks at two densities, full rows, an empty frame and a
+    frame whose chain never starts."""
+    frames = []
+    for density in (0.6, 0.95):
+        f = rng.random((H, W)) < density
+        for r in range(H - 2, -1, -1):  # runs that merge, split and break
+            f[r] |= f[r + 1] & (rng.random(W) < 0.5)
+        frames.append(f)
+    outside = np.zeros((H, W), bool)
+    outside[:, : max(0, W // 3 - 1)] = True
+    outside[:, 2 * W // 3 + 1 :] = True
+    return frames + [np.ones((H, W), bool), np.zeros((H, W), bool), outside]
+
+
+@pytest.mark.cuda
+def test_chain_edges_kernel_widths_gaps_and_bonnets_on_card(cuda_device):
+    from acmpc_tpu_torch.ops.track_chain import chain_edges, chain_edges_reference
+
+    rng = np.random.default_rng(0)
+    # one column, words and rounds of 32 lanes cut anywhere, the widest
+    for H, W in ((9, 1), (13, 7), (30, 63), (30, 64), (30, 65), (41, 100), (33, 300),
+                 (40, 1280), (23, 1281), (21, 2049), (19, 2500), (17, 4096), (12, 8192)):
+        for frame in _edge_frames(rng, H, W):
+            for bonnet in (H - 2, H, 0, H + 3):
+                for gap, band in ((0, 1), (1, 1), (3, 1), (3, 2), (3, 3), (5, 4), (2, 7)):
+                    m = torch.as_tensor(frame.astype(np.uint8), device=cuda_device)
+                    want = chain_edges_reference(m, bonnet, gap, band, return_mask=True)
+                    _assert_edges_equal(chain_edges(m, bonnet, gap, band, return_mask=True), want)
+
+
+@pytest.mark.cuda
+def test_chain_edges_kernel_on_an_unaligned_mask_on_card(cuda_device):
+    # a contiguous mask whose base is not 16-byte aligned: the kernel
+    # takes byte loads
+    from acmpc_tpu_torch.ops.track_chain import chain_edges, chain_edges_reference
+
+    mask, bonnet = _perception_cases(1)[0]
+    H, W = mask.shape
+    flat = torch.zeros(H * W + 1, dtype=torch.uint8, device=cuda_device)
+    m = flat[1:].view(H, W).copy_(torch.as_tensor(mask))
+    assert m.is_contiguous() and m.data_ptr() % 16 == 1
+    for band in (1, 4):
+        want = chain_edges_reference(m, bonnet, 3, band, return_mask=True)
+        _assert_edges_equal(chain_edges(m, bonnet, 3, band, return_mask=True), want)
+    # and a transposed one, made contiguous by the wrapper
+    t = torch.as_tensor(np.ascontiguousarray(mask.T), device=cuda_device).T
+    want = chain_edges_reference(t, bonnet, 3, 4, return_mask=True)
+    _assert_edges_equal(chain_edges(t, bonnet, 3, 4, return_mask=True), want)
+
+
+@pytest.mark.cuda
+def test_chain_edges_on_a_cpu_tensor_takes_the_plain_version(cuda_device):
+    from acmpc_tpu_torch.ops.track_chain import chain_edges, chain_edges_reference
+
+    mask, bonnet = _perception_cases(1)[-1]
+    m = torch.as_tensor(mask)
+    chain_edges.launches.clear()
+    got = chain_edges(m, bonnet, 3, 4, return_mask=True)
+    assert sum(chain_edges.launches.values()) == 0
+    assert all(g.device.type == "cpu" for g in got)
+    for g, w in zip(got, chain_edges_reference(m, bonnet, 3, 4, return_mask=True)):
+        assert torch.equal(g, w)
+    card = chain_edges(m.to(cuda_device), bonnet, 3, 4, return_mask=True)
+    for g, c in zip(got, card):
+        assert torch.equal(g, c.cpu())
+
+
+@pytest.mark.cuda
+def test_chain_edges_refuses_unsupported_shapes_on_card(cuda_device):
+    from acmpc_tpu_torch.ops import track_chain
+
+    track_chain.chain_edges.launches.clear()
+    bad = [
+        (torch.zeros(1500, 1280, dtype=torch.uint8, device=cuda_device), 3, ValueError),  # shared memory
+        (torch.zeros(4, track_chain.EDGES_MAX_WIDTH + 1, dtype=torch.uint8, device=cuda_device), 3, ValueError),
+        (torch.zeros(4, 64, dtype=torch.float32, device=cuda_device), 3, TypeError),
+        (torch.zeros(64, dtype=torch.uint8, device=cuda_device), 3, ValueError),
+        (torch.zeros(2, 4, 64, dtype=torch.uint8, device=cuda_device), 3, ValueError),
+        (torch.zeros(0, 64, dtype=torch.uint8, device=cuda_device), 3, ValueError),
+        (torch.zeros(4, 64, dtype=torch.uint8, device=cuda_device), -1, ValueError),
+    ]
+    for mask, gap, error in bad:
+        with pytest.raises(error):
+            track_chain.chain_edges(mask, 2, gap, 1)
+    with pytest.raises(ValueError):  # the kernel's entry takes CUDA tensors only
+        track_chain._launch_edges(torch.zeros(4, 64, dtype=torch.uint8), 2, 3, 1, False)
+    assert sum(track_chain.chain_edges.launches.values()) == 0
 
 
 @pytest.mark.cuda
@@ -491,7 +612,7 @@ def test_perceiver_on_card_matches_cpu_fp32(cuda_device):
     # may flip; a flipped edge pixel moves a boundary point, hence the
     # polylines' 0.05 m (tests/test_torch_perception.py's tolerance for it)
     from acmpc_tpu_torch.bench import perception_loop as loop
-    from acmpc_tpu_torch.ops.track_chain import TRACK_CHAIN_SCAN, chain_scan
+    from acmpc_tpu_torch.ops.track_chain import TRACK_CHAIN_EDGES, chain_edges, chain_scan
     from acmpc_tpu_torch.perception.perceiver import Perceiver
 
     cfg = loop.perception_config(320, 192, "fp32")
@@ -499,12 +620,14 @@ def test_perceiver_on_card_matches_cpu_fp32(cuda_device):
     frame = loop.make_sim(cfg, centre, left, right).reset()["image"]
     out = {}
     chain_scan.launches.clear()
+    chain_edges.launches.clear()
     for device in ("cpu", cuda_device):
         perc = Perceiver(cfg, device=device)
         drivable, semantics, tracks = perc._run_pipeline(torch.as_tensor(frame, device=device))
         assert drivable.device.type == torch.device(device).type
         out[str(device)] = (drivable.cpu(), semantics.cpu(), {k: v.cpu() for k, v in tracks.items()})
-    assert dict(chain_scan.launches) == {TRACK_CHAIN_SCAN: 1}
+    assert dict(chain_edges.launches) == {TRACK_CHAIN_EDGES: 1}
+    assert sum(chain_scan.launches.values()) == 0
     (d_gpu, s_gpu, t_gpu), (d_cpu, s_cpu, t_cpu) = out[str(cuda_device)], out["cpu"]
     assert (d_gpu == d_cpu).float().mean() >= 0.999
     assert (s_gpu == s_cpu).float().mean() >= 0.999
