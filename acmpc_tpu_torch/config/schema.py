@@ -1,11 +1,11 @@
 """Typed configuration for the port's slice of the stack.
 
-Counterpart of the control, perception and localisation parts of
-``acmpc_tpu/config/schema.py``: the vehicle, the perception and
-localisation blocks, the racing and mapping control blocks and the map
-speed-profile limits of a track YAML, parsed once into frozen
-dataclasses. The YAML is read by the
-port's own subset parser (``yaml_subset.py``).
+Counterpart of ``acmpc_tpu/config/schema.py``: the vehicle, the
+perception and localisation blocks, the racing and mapping control
+blocks, the map speed-profile limits, the mapping session, the actuator
+PIDs and the dataset capture of a track YAML, parsed once into frozen
+dataclasses. The YAML is read by the port's own subset parser
+(``yaml_subset.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +16,23 @@ import pathlib
 from acmpc_tpu_torch.config.yaml_subset import parse_yaml
 from acmpc_tpu_torch.dynamics.vehicle import VehicleParams
 from acmpc_tpu_torch.mpc.spatial_mpc import MPCConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class PIDConfig:
+    proportional: float
+    integral: float
+    derivative: float
+    sampling_interval_s: float
+
+    @classmethod
+    def from_config(cls, cfg: dict) -> "PIDConfig":
+        return cls(
+            proportional=cfg["proportional"],
+            integral=cfg["integral"],
+            derivative=cfg["derivative"],
+            sampling_interval_s=cfg["sampling_interval_s"],
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,10 +187,21 @@ class AgentConfig:
     mapping_control: MPCConfig
     racing_control: MPCConfig
     map_speed_profile: MapSpeedProfileConstraints
+    map_path: str
+    create_map: bool
+    n_mapping_laps: int
+    throttle_pid: PIDConfig
+    brake_pid: PIDConfig
+    steering_pid: PIDConfig
+    # dataset capture (the data_collection block: collect_images frames
+    # saved by recording/recorder.py)
+    collect_images: int = 0
+    data_collection_path: str = "data"
 
     @classmethod
     def from_config(cls, cfg: dict) -> "AgentConfig":
         msp = cfg["racing"]["map_speed_profile_constraints"]
+        dc = cfg.get("data_collection", {}) or {}
         return cls(
             experiment=cfg["experiment"],
             seed=cfg.get("seed", 0),
@@ -185,6 +213,14 @@ class AgentConfig:
             map_speed_profile=MapSpeedProfileConstraints(
                 ay_max=msp["ay_max"], a_min=msp["a_min"]
             ),
+            map_path=cfg["mapping"]["map_path"],
+            create_map=cfg["mapping"].get("create_map", False),
+            n_mapping_laps=cfg["mapping"].get("n_mapping_laps", 2),
+            throttle_pid=PIDConfig.from_config(cfg["pids"]["throttle"]),
+            brake_pid=PIDConfig.from_config(cfg["pids"]["brake"]),
+            steering_pid=PIDConfig.from_config(cfg["pids"]["steering"]),
+            collect_images=int(dc.get("collect_images", 0)),
+            data_collection_path=dc.get("save_path", "data"),
         )
 
 

@@ -10,6 +10,11 @@ never loaded. The compiler's report (``-Xptxas=-v``: registers, shared
 memory and spills of each kernel) is kept beside the library as
 ``<name>.log``. ``defines`` compile a variant of a source (``-D`` flags,
 part of the hash), such as a kernel's stage stamps.
+
+``build_host_library`` is the host-compiler sibling for the C++ sources
+(``csrc/*.cpp``): built with ``c++`` (or ``$CXX``) into the same
+directory, named by a hash of the source, the flags, the compiler and its
+version, and the machine.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import platform
 import shutil
 import subprocess
 import tempfile
@@ -33,6 +39,11 @@ _ARCH = {(9, 0): "90a"}
 _FLAGS = (
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v",
 )
+
+
+# the host C++ compiler of build_host_library
+HOST_CXX = os.environ.get("CXX", "c++")
+_HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -69,6 +80,37 @@ def build_library(source_name: str, device: torch.device, defines: tuple[str, ..
     digest.update(" ".join((*flags, gencode)).encode() + version.encode())
     key = digest.hexdigest()[:16]
     out = BUILD_DIR / f"{source.stem}-sm{arch}-{key}.so"
+    _compile([nvcc, gencode, *flags], source, out)
+    return ctypes.CDLL(str(out))
+
+
+def build_host_library(source_name: str) -> ctypes.CDLL:
+    """Compile the C++ source ``csrc/<source_name>`` with the host
+    compiler (once per content hash) and load it. Raises ``RuntimeError``
+    when the compiler is missing or fails."""
+    cxx = shutil.which(HOST_CXX)
+    if cxx is None:
+        raise RuntimeError(
+            f"host C++ compiler {HOST_CXX!r} not found: set CXX or put c++ on PATH"
+        )
+    source = CSRC / source_name
+    try:
+        version = subprocess.run(
+            [cxx, "--version"], check=True, capture_output=True, text=True
+        ).stdout
+    except (OSError, subprocess.CalledProcessError) as err:
+        raise RuntimeError(f"host C++ compiler {cxx} does not run: {err}") from err
+    digest = hashlib.sha256(source.read_bytes())
+    digest.update(" ".join((cxx, *_HOST_FLAGS, platform.machine())).encode())
+    digest.update(version.encode())
+    out = BUILD_DIR / f"{source.stem}-host-{digest.hexdigest()[:16]}.so"
+    _compile([cxx, *_HOST_FLAGS], source, out)
+    return ctypes.CDLL(str(out))
+
+
+def _compile(command: list, source: pathlib.Path, out: pathlib.Path) -> None:
+    """Run ``command -o <tmp> source`` unless ``out`` exists, keep the
+    compiler's report as ``out.log`` and move the library into place."""
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         # compile to a private name, then rename: a concurrent build never
@@ -77,7 +119,7 @@ def build_library(source_name: str, device: torch.device, defines: tuple[str, ..
         os.close(fd)
         try:
             done = subprocess.run(
-                [nvcc, gencode, *flags, "-o", tmp, str(source)],
+                [*command, "-o", tmp, str(source)],
                 check=True,
                 capture_output=True,
                 text=True,
@@ -85,8 +127,8 @@ def build_library(source_name: str, device: torch.device, defines: tuple[str, ..
             out.with_suffix(".log").write_text(done.stdout + done.stderr)
             os.replace(tmp, out)
         except subprocess.CalledProcessError as err:
-            raise RuntimeError(f"nvcc failed on {source}:\n{err.stderr}") from err
+            name = pathlib.Path(command[0]).name
+            raise RuntimeError(f"{name} failed on {source}:\n{err.stderr}") from err
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
-    return ctypes.CDLL(str(out))

@@ -93,6 +93,23 @@ Phases, each printing one line:
      from ``torch.profiler`` over nordschleife's first 200 observations,
      device busy time and launches per observation, the idle share and the
      ``nearest_point`` share.
+  12. the racing agent (``bench/agent_loop.py``): the runtime shell's
+     three threads (frame, perception worker, control) on the card. (a)
+     racing: monza with the shipped FPN at its training camera
+     (1280x736 bf16), the 500-particle filter on monza's 11,714-point map
+     and the racing MPC at horizon 50, 200 frames paced on solve
+     freshness every 4th frame, with tests/test_agent_e2e.py's gates
+     (first command within 180 s, > 50 m, off-track < 5 m, > 10 m/s at
+     the end, no thread exception, a teardown that joins); at least as
+     many cluster launches as racing command sets, at least one
+     chain-edges launch, no split launch; 20 more frames under
+     ``torch.profiler``. (b) mapping then racing: one mapping lap of
+     tests/test_mapping_e2e.py's ~330 m loop with oracle perception at
+     320x192 and the mapping MPC at horizon 100, the map built and saved
+     (median centre error < 2.5 m, > 0.6 of the true length), the switch
+     to the racing MPC at horizon 50 and 100 racing frames (off-track
+     < 5 m, > 20 m); the split kernel launched before the switch, the
+     cluster kernel after it.
 Then the kernels line, the card line and, last, the result line. Any
 failure raises and the exit code is not 0. Without a CUDA device it
 exits with code 2 and prints no result.
@@ -151,6 +168,8 @@ POLYLINE_AGREE_M = 0.5
 LOC_REPLAYS = (("monza_synth", None), ("monza_realperc", None), ("nordschleife_synth", 2000))
 LOC_SEEDS = (0, 1, 2)
 LOC_SYNC_PAIRS = 50
+# the racing agent (phase 12): frames of the racing run
+AGENT_FRAMES = 200
 N_ITERS, ALPHA = 25, 1.6
 TRACKS = [
     "monza", "spa", "silverstone", "nordschleife",
@@ -1238,12 +1257,41 @@ def phase_localisation() -> dict:
     return info
 
 
-def kernels_line(kernel: dict, main: dict, mapping: dict, sweep: dict, multi: dict, perception: dict) -> dict:
+def phase_agent() -> dict:
+    """The racing agent on the card: the racing run at full width, then
+    the mapping session and its switch to racing, each with its gates;
+    the launches of the three paths' kernels, summed over both runs."""
+    from acmpc_tpu_torch.bench import agent_loop
+
+    t_phase = time.perf_counter()
+    info: dict = {}
+    for name, run in (
+        ("racing", lambda: agent_loop.racing_run(AGENT_FRAMES, DEVICE, profile=True)),
+        ("mapping", lambda: agent_loop.mapping_run(DEVICE)),
+    ):
+        result = run()
+        if result["fails"]:
+            raise RuntimeError(f"agent {name} run failed its gates: {result['fails']}; {result}")
+        info[name] = result
+    launches = collections.Counter(info["racing"]["launches"])
+    for part in ("mapping", "racing"):
+        launches.update(info["mapping"][part]["launches"])
+    info["launches"] = dict(launches)
+    info["phase_s"] = time.perf_counter() - t_phase
+    info["card"] = card_line()
+    emit("phase 12 agent", info)
+    return info
+
+
+def kernels_line(
+    kernel: dict, main: dict, mapping: dict, sweep: dict, multi: dict, perception: dict, agent: dict
+) -> dict:
     """One row per kernel variant: launches from the paths that run it
-    (cluster: phases 4, 8, 9 and 10; split: phase 6; stream: none since
-    the split kernel, so the count from phase 6 is 0; chain edges: phase
-    10's loop; chain scan: none since the chain-edges kernel, so the count
-    from phase 10's loop is 0), numbers from phase 3 at the horizon-50
+    (cluster: phases 4, 8, 9, 10 and 12; split: phases 6 and 12; stream:
+    none since the split kernel, so the count from phase 6 is 0; chain
+    edges: phase 10's loop and phase 12; chain scan: none since the
+    chain-edges kernel, so the count from phase 10's loop is 0), numbers
+    from phase 3 at the horizon-50
     B = 256 or the mapping shapes (stream: at the mapping shapes, on the
     split kernel's inputs), and for both chain kernels from phase 10 at
     1280x736, band 4."""
@@ -1270,18 +1318,19 @@ def kernels_line(kernel: dict, main: dict, mapping: dict, sweep: dict, multi: di
     n50, n100 = H50[0], H100[0]
     h50, h50a = f"n{n50}_B{BATCH}", f"n{n50}_B{BATCH}_active"
     h100, h100a = f"n{n100}_B{MAPPING_BATCH}", f"n{n100}_B{MAPPING_BATCH}_active"
-    cluster_paths = collections.Counter()
+    cluster_paths = collections.Counter(agent["launches"])
     for path in (main, sweep, multi, perception):
         cluster_paths.update(path["launches"])
     cluster_paths = {"launches": cluster_paths}
+    split_paths = {"launches": collections.Counter(mapping["launches"]) + collections.Counter(agent["launches"])}
     scan = perception["chain_scan"]["band4"]
     edges = perception["chain_edges"]["band4"]
     return {
         "kernels": [
             row(ops.CLUSTER, h50, 99, cluster_paths),
             row(ops.CLUSTER_ACTIVE, h50a, 103, cluster_paths),
-            row(ops.SPLIT, h100, 99, mapping),
-            row(ops.SPLIT_ACTIVE, h100a, 103, mapping),
+            row(ops.SPLIT, h100, 99, split_paths),
+            row(ops.SPLIT_ACTIVE, h100a, 103, split_paths),
             row(ops.STREAM, h100, 99, mapping, prefix="stream_"),
             row(ops.STREAM_ACTIVE, h100a, 103, mapping, prefix="stream_"),
             {
@@ -1302,7 +1351,8 @@ def kernels_line(kernel: dict, main: dict, mapping: dict, sweep: dict, multi: di
                 "route": "cuda",
                 "source": f"acmpc_tpu_torch/csrc/{chain.EDGES_SOURCE}",
                 "replaces": "acmpc_tpu/perception/tracks.py:62",
-                "launches": perception["launches"].get(chain.TRACK_CHAIN_EDGES, 0),
+                "launches": perception["launches"].get(chain.TRACK_CHAIN_EDGES, 0)
+                + agent["launches"].get(chain.TRACK_CHAIN_EDGES, 0),
                 "max_abs_err": perception["chain_edges"]["max_abs_err"],
                 "ms": edges["ms"],
                 "plain_ms": edges["plain_ms"],
@@ -1335,7 +1385,8 @@ def main() -> int:
     multi = phase_multi_track()
     perception = phase_perception()
     phase_localisation()
-    print(json.dumps(kernels_line(kernel, main_info, mapping, sweep, multi, perception)))
+    agent = phase_agent()
+    print(json.dumps(kernels_line(kernel, main_info, mapping, sweep, multi, perception, agent)))
     print(card_line())
     print(json.dumps({
         "ok": True,

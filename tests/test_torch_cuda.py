@@ -665,3 +665,149 @@ def test_monza_realperc_replays_on_card_within_fixture_bounds(cuda_device):
     rows = [locbench.replay("monza_realperc", seed, None, cuda_device) for seed in (0, 1, 2)]
     assert locbench.check(rows, locbench.load_fixture()) == [], rows
     assert all(row["observation_sync_p50_ms"] is not None for row in rows)
+
+
+# -- the racing agent (runtime shell) ------------------------------------
+
+
+def _agent_config(map_path, horizon=None):
+    """monza's config at the e2e tests' camera (320x192, bonnet 160, 200
+    polyfit points), localisation off; ``horizon`` cuts both MPCs."""
+    from acmpc_tpu_torch.config import load_config
+
+    r = dataclasses.replace
+    cfg = load_config(ROOT / "configs" / "monza.yaml")
+    cfg = r(
+        cfg,
+        perception=r(cfg.perception, image_width=320, image_height=192,
+                     n_rows_to_remove_bonnet=160, n_polyfit_points=200),
+        localisation=r(cfg.localisation, use_localisation=False),
+        map_path=str(map_path),
+    )
+    if horizon is not None:
+        cfg = r(
+            cfg,
+            racing_control=r(cfg.racing_control, horizon=horizon,
+                             constraints=r(cfg.racing_control.constraints, v_max=30.0)),
+            mapping_control=r(cfg.mapping_control, horizon=horizon),
+        )
+    return cfg
+
+
+def _loop_map(tmp_path):
+    """bench.py's asymmetric ~1.3 km circuit, saved as .npz."""
+    from acmpc_tpu_torch.bench import perception_loop as loop
+    from acmpc_tpu_torch.localise.track_map import save_track_map
+
+    centre, left, right, _ = loop.circuit()
+    save_track_map(tmp_path / "loop.npz", centre, left, right)
+    return tmp_path / "loop.npz", centre
+
+
+def _sim(cfg, map_path, start_index=50):
+    from acmpc_tpu_torch.localise.track_map import load_track_map
+    from acmpc_tpu_torch.perception.camera import CameraInfo
+    from acmpc_tpu_torch.runtime.sim import SyntheticSimulator
+
+    return SyntheticSimulator(
+        load_track_map(map_path, device="cpu"), CameraInfo.from_config(cfg.perception),
+        dt=0.05, start_index=start_index, half_width=5.0,
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["racing", "mapping"])
+def test_controller_solve_on_card_matches_cpu(cuda_device, tmp_path, mode):
+    """The control thread's solve at monza's horizons (racing 50, mapping
+    100) on perceived centrelines, card against CPU: the published
+    commands within 5e-3, through the cluster or the split kernel."""
+    from acmpc_tpu_torch.perception.tracks import TrackExtractionConfig, TrackLimitExtractor
+    from acmpc_tpu_torch.runtime.controller import Controller, _ControlThread
+
+    map_path, centre = _loop_map(tmp_path)
+    cfg = dataclasses.replace(_agent_config(map_path), create_map=mode == "mapping")
+    sim = _sim(cfg, map_path)
+    extractor = TrackLimitExtractor(TrackExtractionConfig.from_config(cfg.perception), sim.camera, "cpu")
+    controllers = {d: Controller(cfg, device=d) for d in ("cpu", cuda_device)}
+    threads = {d: _ControlThread(c) for d, c in controllers.items()}
+    ops.admm_chunk.launches.clear()
+    for k, i in enumerate((50, 400, 900)):
+        p0, p1 = centre[i], centre[i + 1]
+        sim.x, sim.y = float(p0[0]), float(p0[1])
+        sim.yaw = float(np.arctan2(p1[1] - p0[1], p1[0] - p0[0])) + 0.05
+        line = extractor.extract(torch.as_tensor(sim.render_drivable_mask()))["centre"].numpy()
+        for d, thread in threads.items():
+            thread._solve(line, float(k))
+        (want, _, _), (got, _, _) = (controllers[d]._command_box.read() for d in ("cpu", cuda_device))
+        assert got is not None and want is not None, "a solve was not published"
+        for field in ("controls", "cum_time", "prediction"):
+            np.testing.assert_allclose(getattr(got, field), getattr(want, field), rtol=5e-3, atol=5e-3,
+                                       err_msg=f"{mode} {k} {field}")
+    kernel = ops.SPLIT if mode == "mapping" else CLUSTER
+    assert ops.admm_chunk.launches.get(kernel, 0) >= 3
+    assert controllers[cuda_device].mpc.horizon == (100 if mode == "mapping" else 50)
+
+
+@pytest.mark.cuda
+def test_agent_drive_on_card_matches_cpu(cuda_device, tmp_path, monkeypatch):
+    """30 synchronous frames of the agent (oracle perception, horizon 20)
+    on the card and on the CPU from the same observations on one fake
+    clock, the sim driven by the CPU agent's action: the actions within
+    5e-3 and the same command sets; the card's agent launched the
+    cluster and the chain-edges kernels."""
+    import types
+
+    import acmpc_tpu_torch.runtime.pid as pid_module
+    from acmpc_tpu_torch.ops.track_chain import TRACK_CHAIN_EDGES, chain_edges
+    from acmpc_tpu_torch.perception.observations import ObservationDict
+    from acmpc_tpu_torch.runtime import Agent
+
+    map_path, _ = _loop_map(tmp_path)
+    cfg = _agent_config(map_path, horizon=20)
+    clock = types.SimpleNamespace(t=0.0)
+    now = lambda: clock.t  # noqa: E731
+    monkeypatch.setattr(pid_module, "time", types.SimpleNamespace(monotonic=now))
+    sim_clock = types.SimpleNamespace(clock=now, close=lambda: None)
+    agents = {d: Agent(cfg, sim_clock, use_oracle_perception=True, device=d) for d in ("cpu", cuda_device)}
+    threads = {}
+    for d, agent in agents.items():
+        threads[d] = agent.controller._thread
+        agent.controller.shutdown()
+    sim = _sim(cfg, map_path)
+    raw = sim.reset()
+    ops.admm_chunk.launches.clear()
+    chain_edges.launches.clear()
+    try:
+        for k in range(30):
+            clock.t = sim.t
+            actions = {}
+            for d, agent in agents.items():
+                agent._maybe_setup_racing()
+                obs = ObservationDict(raw)
+                agent._update_perception(obs, raw)
+                threads[d]._solve(*agent.controller._centreline_box.read()[0])
+                agent._step(obs)
+                actions[d] = agent.control_input
+            np.testing.assert_allclose(actions[cuda_device], actions["cpu"], rtol=5e-3, atol=5e-3,
+                                       err_msg=f"frame {k}")
+            raw = sim.step(actions["cpu"])
+        versions = {d: a.controller.command_version for d, a in agents.items()}
+        assert versions[cuda_device] == versions["cpu"] == 30
+    finally:
+        for agent in agents.values():
+            agent.teardown()
+    assert ops.admm_chunk.launches.get(CLUSTER, 0) >= 30
+    assert chain_edges.launches.get(TRACK_CHAIN_EDGES, 0) == 30
+    assert sim.distance > 20.0
+
+
+@pytest.mark.cuda
+def test_tsp_tour_builds_on_the_card_machine(cuda_device):
+    from acmpc_tpu_torch import native
+
+    rng = np.random.default_rng(1)
+    theta = np.linspace(0, 2 * np.pi, 200, endpoint=False)
+    loop = np.stack([100 * np.cos(theta), 80 * np.sin(theta)], axis=1) + rng.normal(scale=0.3, size=(200, 2))
+    points = np.float32(loop[rng.permutation(200)])
+    order = native.tsp_tour(points, 3.0)
+    np.testing.assert_array_equal(order, native._tsp_tour_numpy(points, 3.0))
