@@ -26,7 +26,14 @@ frame on the mapping lap, see ``MAPPING_PACE_EVERY``):
   100 racing frames with off-track < 5 m and distance > 20 m.
 
     python -m acmpc_tpu_torch.bench.agent_loop [--run racing|mapping|both]
-        [--frames 200] [--profile] [--device cuda] [--out f]
+        [--frames 200] [--profile] [--dashboard] [--device cuda] [--out f]
+
+With ``--dashboard`` the racing run serves the dashboard (``dashboard/``)
+on a free port while it drives, and one client thread a stream watches
+the composite and every feed over HTTP; the run then also reports the
+frames each stream received (each must be a whole JPEG, SOI to EOI),
+whether ``/session.json`` parsed, the renderer's passes and exceptions,
+and the composite's encode ms.
 
 Prints one JSON line per run: frames, seconds, distance, laps, maximum
 off-track, command sets published, ``behaviour()`` wall p50/p99 (the
@@ -49,7 +56,9 @@ import pathlib
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -57,6 +66,8 @@ import torch
 from acmpc_tpu_torch.bench.perception_loop import _sync, perception_config
 from acmpc_tpu_torch.bench.step_breakdown import device_time
 from acmpc_tpu_torch.config import load_config
+from acmpc_tpu_torch.dashboard import Dashboard
+from acmpc_tpu_torch.dashboard.server import FEED_NAMES
 from acmpc_tpu_torch.geometry.tracks import offset_boundaries
 from acmpc_tpu_torch.localise.track_map import TrackMap, load_track_map
 from acmpc_tpu_torch.ops import admm_chunk as chunk_ops
@@ -259,8 +270,83 @@ def _teardown(agent: Agent) -> bool:
     return not (thread is not None and thread.is_alive()) and not any(w.is_alive() for w in workers)
 
 
-def racing_run(frames: int = 200, device="cuda", profile: bool = False) -> dict:
-    """Run ``racing``; returns its measurements and gate failures."""
+class _FeedWatcher:
+    """A client of one MJPEG stream: reads each part by its
+    Content-Length and keeps the count of frames, how many were whole
+    JPEGs (SOI first, EOI last), and the last frame."""
+
+    def __init__(self, url: str):
+        self.url = url
+        self.frames = self.whole = 0
+        self.last: bytes | None = None
+        self.error: str | None = None
+        self.thread = threading.Thread(target=self._run, daemon=True, name=f"watch {url}")
+        self.thread.start()
+
+    def _run(self):
+        try:
+            with urllib.request.urlopen(self.url, timeout=60) as r:
+                while True:
+                    line = r.readline()
+                    if not line:
+                        return  # the server ended the stream
+                    if not line.lower().startswith(b"content-length:"):
+                        continue
+                    n = int(line.split(b":", 1)[1])
+                    r.readline()  # the blank line after the part's headers
+                    frame = r.read(n)
+                    self.frames += 1
+                    self.whole += frame[:2] == b"\xff\xd8" and frame[-2:] == b"\xff\xd9"
+                    self.last = frame
+        except Exception as err:  # reported, and the run fails on it
+            self.error = repr(err)
+
+
+def _watch_dashboard(dashboard) -> dict:
+    """One watcher for the composite and one for each feed."""
+    base = f"http://127.0.0.1:{dashboard.port}"
+    urls = {"composite": f"{base}/feed.mjpg", **{f: f"{base}/feed/{f}.mjpg" for f in FEED_NAMES}}
+    return {name: _FeedWatcher(url) for name, url in urls.items()}
+
+
+def _dashboard_report(dashboard, watchers: dict) -> dict:
+    with urllib.request.urlopen(f"http://127.0.0.1:{dashboard.port}/session.json", timeout=20) as r:
+        session = json.loads(r.read())
+    dashboard.stop()  # ends every stream
+    for w in watchers.values():
+        w.thread.join(timeout=30)
+    encode = np.asarray(dashboard.encode_ms) if dashboard.encode_ms else np.full(1, np.nan)
+    return {
+        "feeds": {
+            name: {"frames": w.frames, "whole_jpegs": w.whole, "last_bytes": len(w.last or b""),
+                   "error": w.error, "ended": not w.thread.is_alive()}
+            for name, w in watchers.items()
+        },
+        "session_keys": sorted(session),
+        "renders": dashboard.renders,
+        "render_errors": dashboard.render_errors,
+        "last_render_error": dashboard.last_render_error,
+        "composite_encode_ms_p50": float(np.percentile(encode, 50)),
+        "composite_encode_ms_p99": float(np.percentile(encode, 99)),
+        "composites_encoded": len(dashboard.encode_ms),
+    }
+
+
+def _dashboard_fails(report: dict) -> list:
+    fails = []
+    for name, feed in report["feeds"].items():
+        if feed["frames"] < 1 or feed["whole_jpegs"] != feed["frames"] or feed["error"] or not feed["ended"]:
+            fails.append(f"dashboard feed {name}: {feed}")
+    if report["render_errors"]:
+        fails.append(f"dashboard render errors {report['render_errors']}: {report['last_render_error']}")
+    if "current" not in report["session_keys"]:
+        fails.append(f"session.json keys {report['session_keys']}")
+    return fails
+
+
+def racing_run(frames: int = 200, device="cuda", profile: bool = False, dashboard: bool = False) -> dict:
+    """Run ``racing``, with the dashboard served and watched when asked;
+    returns its measurements and gate failures."""
     device = torch.device(device)
     cfg = racing_config()
     track_map = load_track_map(cfg.map_path, device="cpu")
@@ -273,8 +359,13 @@ def racing_run(frames: int = 200, device="cuda", profile: bool = False) -> dict:
                  "precision": cfg.perception.precision, "particles": cfg.localisation.n_particles,
                  "horizon": cfg.racing_control.horizon, "map_points": int(len(centre)), "start_index": RACING_START}
     joined = False
+    dash = watchers = None
     try:
         obs, out["first_command_s"] = _start(agent, sim)
+        if dashboard:
+            dash = Dashboard(agent, sim, port=0)
+            dash.start()
+            watchers = _watch_dashboard(dash)
         drive = _Drive(agent, sim, centre)
         d0, before = sim.distance, _threads(agent)
         _sync(device)
@@ -298,10 +389,14 @@ def racing_run(frames: int = 200, device="cuda", profile: bool = False) -> dict:
         )
         if profile:
             obs, out["profile"] = _profile(drive, obs, PROFILE_FRAMES)
+        if dash is not None:
+            out["dashboard"] = _dashboard_report(dash, watchers)
     finally:
+        if dash is not None:
+            dash.stop()
         joined = _teardown(agent)
     out["teardown_joined"] = joined
-    fails = []
+    fails = _dashboard_fails(out["dashboard"]) if dashboard else []
     if out["distance_m"] <= 50.0:
         fails.append(f"car barely moved: {out['distance_m']:.1f} m")
     if out["max_offtrack_m"] >= HALF_WIDTH:
@@ -417,6 +512,7 @@ def main(argv=None) -> int:
     parser.add_argument("--frames", type=int, default=200, help="racing frames")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--profile", action="store_true")
+    parser.add_argument("--dashboard", action="store_true", help="serve and watch the dashboard (racing)")
     parser.add_argument("--out", default=None, help="also write the JSON lines here")
     args = parser.parse_args(argv)
     device = torch.device(args.device)
@@ -433,7 +529,7 @@ def main(argv=None) -> int:
     runs = ("racing", "mapping") if args.run == "both" else (args.run,)
     for run in runs:
         if run == "racing":
-            result = racing_run(args.frames, device, args.profile)
+            result = racing_run(args.frames, device, args.profile, args.dashboard)
         else:
             result = mapping_run(device, args.profile)
         result["card"] = card

@@ -2,10 +2,11 @@
 
 Counterpart of ``acmpc_tpu/cli/race.py``. The default simulator is the
 built-in SyntheticSimulator over the configured track map; an external
-simulator process is driven over a socket with ``--remote``. Runs on the
-card unless ``--device`` names another device:
+simulator process is driven over a socket with ``--remote``; ``--dashboard``
+serves the MJPEG dashboard while the agent runs. Runs on the card unless
+``--device`` names another device:
 
-    python -m acmpc_tpu_torch.cli.race --config configs/monza.yaml --steps 400
+    python -m acmpc_tpu_torch.cli.race --config configs/monza.yaml --steps 400 [--dashboard]
 """
 
 from __future__ import annotations
@@ -27,6 +28,9 @@ def parse_arguments(argv=None):
     )
     parser.add_argument(
         "--map", default=None, help="override the track map path"
+    )
+    parser.add_argument(
+        "--dashboard", action="store_true", help="serve the MJPEG dashboard"
     )
     parser.add_argument(
         "--remote",
@@ -68,7 +72,18 @@ def main(argv=None):
         map_path=map_path,
         device=args.device,
     )
-    obs = agent.run(max_steps=args.steps)
+    dashboard = None
+    if args.dashboard:
+        from acmpc_tpu_torch.dashboard import Dashboard
+
+        dashboard = Dashboard(agent, sim)
+        dashboard.start()
+        print(f"dashboard: http://localhost:{dashboard.port}/")
+    try:
+        obs = agent.run(max_steps=args.steps)
+    finally:
+        if dashboard is not None:
+            dashboard.stop()
     state = obs["state"]
     print(
         f"finished: distance={state['distance_traveled']:.0f} m, "

@@ -45,11 +45,12 @@ class BenchmarkLocalisation:
         self._last_timestamp: Optional[float] = None
         self._events: list = []
 
-    def run(self, max_steps: Optional[int] = None) -> Dict:
+    def run(self, visualiser=None, max_steps: Optional[int] = None) -> Dict:
         """Replay the recording (its first ``max_steps`` control steps when
-        given) and return the tracker's summary. The JAX package's
-        visualiser hooks are not ported (``visualisation.py`` draws with
-        matplotlib)."""
+        given) and return the tracker's summary. An optional
+        ``LocalisationVisualiser`` gets ``update_particles`` after every
+        control step and ``update_detections`` after every observation,
+        outside the timed calls."""
         on_card = self.localiser.device.type == "cuda"
         n_steps = 0
         for record in self._recording:
@@ -63,6 +64,8 @@ class BenchmarkLocalisation:
                     self.localiser.step(record["control_command"], dt=dt)
                     elapsed = perf_counter() - t0
                 self.tracker.update_step(elapsed)
+                if visualiser is not None:
+                    visualiser.update_particles()
             elif "tracklimits" in record:
                 obs = record["tracklimits"]
                 with profiled_range(OBSERVE_RANGE):
@@ -76,6 +79,8 @@ class BenchmarkLocalisation:
                         end.record()
                         self._events.append((start, end))
                 self.tracker.update_observation(elapsed)
+                if visualiser is not None:
+                    visualiser.update_detections(obs["left"], obs["right"])
         return self.tracker.summary()
 
     def observation_device_ms(self) -> list[float]:

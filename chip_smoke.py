@@ -27,7 +27,11 @@ Phases, each printing one line:
      split kernel's C from 8 to 16 at B = 8 and {8, 16} at B = 1; for
      every C, the wrapper's shared-memory layout against the library's,
      and for every C that fits, its shared bytes per CTA and how many such
-     clusters the card holds;
+     clusters the card holds; and the raceline's chunk shapes, n = m =
+     586 (the raceline CLI's cap on monza) and n = m = 1,953 (monza at the
+     stride of the shipped racelines), B = 1, through the split kernel:
+     the layout against the library's, kernel against plain, times and
+     bound;
   4. main path: monza racing config, horizon 50, B = 256 windows of a
      difficulty ramp through ``SpatialMPC.batched_get_control_fused``:
      one cold step with converged-scenario skipping on, then five
@@ -110,6 +114,27 @@ Phases, each printing one line:
      to the racing MPC at horizon 50 and 100 racing frames (off-track
      < 5 m, > 20 m); the split kernel launched before the switch, the
      cluster kernel after it.
+  13. the offline tools and the dashboard: (a) the minimum-curvature
+     raceline (``utils/raceline.py``) on each of the seven shipped maps at
+     the raceline CLI's 600-point cap and on monza at 1,953 points, each
+     held against the JAX package's line in
+     tests/fixtures/torch_raceline_jax.npz with tests/test_torch_raceline.py's
+     tolerances (the curvature profile and its squared sum, alpha within
+     the margin, the bound), every QP solved, and every chunk a launch of the split
+     kernel and of no other variant; ms per raceline and chunks per QP;
+     (b) the Pacejka model's 40-step rollouts and curve fits on the card
+     against the CPU; (c) phase 12's racing run (monza, 1280x736 bf16,
+     500 particles) for 60 frames with the dashboard served and a client
+     thread watching the composite and every feed over HTTP: every
+     stream's frames whole JPEGs, ``/session.json`` parsed, no render
+     exception; the agent's solves/s and ``behaviour()`` p50/p99 beside
+     phase 12's, and the composite's encode ms; (d) the localisation CLI
+     (``cli/benchmark_localisation``) on the committed recording with the
+     fewest control steps (vallelunga_synth, 2,730), filter seeds 0-2 in
+     turn until one lies inside the JAX fixture's bounds, held with
+     ``bench/locbench.check``. The map
+     viewer and the CLIs' ``--figure`` and ``--plot`` need matplotlib,
+     which the card machine lacks; this phase does not run them.
 Then the kernels line, the card line and, last, the result line. Any
 failure raises and the exit code is not 0. Without a CUDA device it
 exits with code 2 and prints no result.
@@ -170,6 +195,23 @@ LOC_SEEDS = (0, 1, 2)
 LOC_SYNC_PAIRS = 50
 # the racing agent (phase 12): frames of the racing run
 AGENT_FRAMES = 200
+# phase 13: the raceline's chunk shapes (n = m), its JAX fixture and the
+# tolerances of tests/test_torch_raceline.py (the QPs' stopping rule pins
+# the curvature profile, not alpha: each point's curvature within a tenth
+# of the largest of JAX's line, the summed squared curvature within 5e-3,
+# alpha within the 1 m margin, the bound as JAX's plus 1e-3); the card
+# against the CPU for the
+# Pacejka model (fp32 transcendentals and 40 Euler steps); the dashboard
+# run's frames; the localisation CLI's recording (the fewest control
+# steps of the committed ones)
+RACELINE_SHAPES = (586, 1953)
+RACELINE_FIXTURE = ROOT / "tests" / "fixtures" / "torch_raceline_jax.npz"
+RACELINE_MARGIN = 1.0
+RACELINE_ALPHA_TOL, RACELINE_KAPPA_SHARE = RACELINE_MARGIN, 0.1
+RACELINE_CURVATURE_RTOL, RACELINE_VIOLATION_SLACK = 5e-3, 1e-3
+PACEJKA_TOL = 1e-4
+DASHBOARD_FRAMES = 60
+LOC_CLI_RECORDING = "vallelunga_synth"
 N_ITERS, ALPHA = 25, 1.6
 TRACKS = [
     "monza", "spa", "silverstone", "nordschleife",
@@ -443,8 +485,55 @@ def phase_kernel() -> dict:
                             compare(run(p), want, f"{key} C={p.cluster}")
                             row["ms_by_C"][p.cluster] = time_cuda_ms(lambda: run(p), reps=20)
                 results[key] = row
+    for n in RACELINE_SHAPES:
+        results[f"n{n}_B1"] = _raceline_chunk(n, dev)
     emit("phase 3 kernel vs plain", {"n_iters": N_ITERS, **results})
     return results
+
+
+def _raceline_chunk(n: int, dev) -> dict:
+    """The raceline's chunk shape, n = m, B = 1: the split plan's layout
+    against the library's, the kernel against its plain version, times
+    and bound."""
+    import ctypes
+
+    import acmpc_tpu_torch.ops.admm_chunk as ops
+
+    plan = ops.plan_chunk(n, n, 1)
+    if plan.variant != "split":
+        raise RuntimeError(f"n = m = {n}: planned {plan}, not the split kernel")
+    lay = ops.split_layout(n, n, plan.cluster, plan.stages, plan.stage_bytes)
+    lib = ops._libraries(dev)["split"]
+    res_w, res_a = ctypes.c_int(), ctypes.c_int()
+    lib.admm_chunk_split_resident_rows(
+        n, n, plan.cluster, plan.stages, plan.stage_bytes, ctypes.byref(res_w), ctypes.byref(res_a)
+    )
+    lib_bytes = lib.admm_chunk_split_smem_bytes(n, n, plan.cluster, plan.stages, plan.stage_bytes)
+    if (lib_bytes, res_w.value, res_a.value) != (lay.bytes, lay.res_w, lay.res_a):
+        raise RuntimeError(f"n = m = {n}: the wrapper's split layout is not the kernel's")
+    inputs = random_chunk_inputs(1, n, n, seed=n, device=DEVICE)
+    want = ops.admm_chunk_reference(*inputs, n_iters=N_ITERS, alpha=ALPHA)
+    ops.admm_chunk.launches.clear()
+    got = ops.admm_chunk(*inputs, n_iters=N_ITERS, alpha=ALPHA)
+    if dict(ops.admm_chunk.launches) != {ops.SPLIT: 1}:
+        raise RuntimeError(f"n = m = {n}: expected one split launch, got {dict(ops.admm_chunk.launches)}")
+    bound_ms, bound_by = chunk_bound(n, n, N_ITERS, 1, 1, False)
+    return {
+        "kernel": ops.SPLIT,
+        "C": plan.cluster,
+        "smem_bytes": lay.bytes,
+        "stage_floats": lay.stage_floats,
+        "resident_rows_w_a": [lay.res_w, lay.res_a],
+        "rows_w_a": [lay.rows_w, lay.rows_a],
+        "streamed_bytes_per_cta_iter": 4 * ((lay.rows_w - lay.res_w) * 2 * n + (lay.rows_a - lay.res_a) * n),
+        "max_abs_err": compare(got, want, f"n{n}_B1"),
+        "ms": time_cuda_ms(lambda: ops._launch(plan, *inputs, n_iters=N_ITERS, alpha=ALPHA), reps=20),
+        "plain_ms": time_cuda_ms(
+            lambda: ops.admm_chunk_reference(*inputs, n_iters=N_ITERS, alpha=ALPHA), reps=5
+        ),
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+    }
 
 
 def difficulty_ramp(horizon: int, batch: int) -> np.ndarray:
@@ -1283,13 +1372,199 @@ def phase_agent() -> dict:
     return info
 
 
+def _curvature(centre: np.ndarray, alpha: np.ndarray) -> np.ndarray:
+    """The signed curvature of centre + alpha * normal, in fp32 on the
+    CPU."""
+    import torch
+
+    from acmpc_tpu_torch.utils.raceline import offset_curvature
+
+    f32 = (torch.tensor(np.asarray(a, np.float32)) for a in (centre, alpha))
+    return offset_curvature(*f32).numpy()
+
+
+def _raceline_case(key: str, fixture) -> tuple:
+    """The centreline and half widths of a fixture case (``<track>/cap``
+    or ``<track>/stride<k>``), made as the raceline CLI makes them."""
+    from acmpc_tpu_torch.cli import raceline as cli
+    from acmpc_tpu_torch.localise.track_map import load_track_map
+
+    track, how = key.split("/")
+    tm = load_track_map(ROOT / "data" / "maps" / f"{track}.npz", device=DEVICE)
+    centre_all, left = tm.centre.cpu().numpy(), tm.left.cpu().numpy()
+    stride = cli.cap_stride(len(centre_all)) if how == "cap" else int(how.removeprefix("stride"))
+    centre, half = cli.corridor(centre_all, left, stride)
+    if not np.array_equal(centre.astype(np.float32), fixture[f"{key}/centre"]):
+        raise RuntimeError(f"raceline {key}: the centreline is not the fixture's")
+    return centre, half
+
+
+def _racelines() -> dict:
+    """Phase 13 (a): every fixture case on the card against JAX's alpha."""
+    import torch
+
+    from acmpc_tpu_torch.ops.admm_chunk import SPLIT
+    from acmpc_tpu_torch.utils.raceline import solve_raceline
+
+    fixture = np.load(RACELINE_FIXTURE)
+    keys = sorted({k.rsplit("/", 1)[0] for k in fixture.files})
+    solve_raceline(*_raceline_case(keys[0], fixture), device=DEVICE)  # untimed: first use
+    rows, launches = {}, collections.Counter()
+    for key in keys:
+        centre, half = _raceline_case(key, fixture)
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = solve_raceline(centre, half, margin=RACELINE_MARGIN, device=DEVICE)
+            alpha = r.alpha.cpu().numpy()
+            return r, alpha, time.perf_counter() - t0
+
+        (r, alpha, seconds), counts = _counted(run)
+        want = fixture[f"{key}/alpha"]
+        bound = np.maximum(half - RACELINE_MARGIN, 0.0)
+        violation = max(0.0, float(np.max(np.abs(alpha) - bound)))
+        jax_violation = max(0.0, float(np.max(np.abs(want) - bound)))
+        err = float(np.abs(alpha - want).max())
+        k, k_jax = _curvature(centre, alpha), _curvature(centre, want)
+        k2, k2_jax = float((k**2).sum()), float((k_jax**2).sum())
+        iterations = [int(sol.iterations) for sol in r.solutions]
+        row = {
+            "points": len(centre),
+            "ms": 1e3 * seconds,
+            "status": [int(sol.status) for sol in r.solutions],
+            "iterations": iterations,
+            "chunks_per_qp": [it // 25 for it in iterations],
+            "launches": counts,
+            "alpha_max_abs_err_m": err,
+            "violation_m": violation,
+            "jax_violation_m": jax_violation,
+            "kappa_max_abs_err": float(np.abs(k - k_jax).max()),
+            "kappa_max_abs_jax": float(np.abs(k_jax).max()),
+            "squared_curvature": k2,
+            "squared_curvature_rel_err": abs(k2 / k2_jax - 1.0),
+        }
+        if not all(bool(sol.solved) for sol in r.solutions) or not np.isfinite(alpha).all():
+            raise RuntimeError(f"raceline {key}: a QP unsolved or alpha not finite: {row}")
+        if set(counts) != {SPLIT} or counts[SPLIT] != sum(iterations) // 25:
+            raise RuntimeError(f"raceline {key}: expected {sum(iterations) // 25} split launches only: {counts}")
+        if (
+            err > RACELINE_ALPHA_TOL
+            or row["kappa_max_abs_err"] > RACELINE_KAPPA_SHARE * row["kappa_max_abs_jax"]
+            or row["squared_curvature_rel_err"] > RACELINE_CURVATURE_RTOL
+            or violation > jax_violation + RACELINE_VIOLATION_SLACK
+        ):
+            raise RuntimeError(f"raceline {key} disagrees with the JAX fixture: {row}")
+        rows[key] = row
+        launches.update(counts)
+    return {"cases": rows, "launches": dict(launches)}
+
+
+def _pacejka() -> dict:
+    """Phase 13 (b): the Pacejka model on the card against the CPU."""
+    from acmpc_tpu_torch.dynamics import pacejka
+
+    out = {}
+    for name in ("ACCELERATION_DATA", "BRAKING_DATA"):
+        data = getattr(pacejka, name)
+        card = pacejka.fit_long_force(data, device=DEVICE)
+        cpu = pacejka.fit_long_force(data, device="cpu")
+        err = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+        if not err <= PACEJKA_TOL:
+            raise RuntimeError(f"fit_long_force({name}): card and CPU differ by {err} (relative)")
+        out[f"fit_{name.lower()}_rel_err"] = err
+    card, cpu = pacejka.DynamicBicycleModel(device=DEVICE), pacejka.DynamicBicycleModel(device="cpu")
+    state = np.array([0.0, 0.0, 0.0, 10.0, 0.0, 0.0])
+    for steer in (0.0, 0.1):
+        controls = np.tile(np.array([steer, 1.0]), (40, 1))
+        got = card.rollout(state, controls, dt=0.05).cpu().numpy()
+        want = cpu.rollout(state, controls, dt=0.05).numpy()
+        err = float(np.abs(got - want).max())
+        if got.shape != (40, 6) or not np.allclose(got, want, rtol=PACEJKA_TOL, atol=PACEJKA_TOL):
+            raise RuntimeError(f"rollout steer {steer}: card and CPU differ by {err}")
+        # tests/test_tools.py's gates: throttle speeds the car up, straight
+        # stays straight, steering curves the path
+        if not got[-1, 3] > 10.5 or (abs(got[-1, 1]) < 1.0) != (steer == 0.0):
+            raise RuntimeError(f"rollout steer {steer}: final state {got[-1]}")
+        out[f"rollout_steer{steer}_max_abs_err"] = err
+        out[f"rollout_steer{steer}_final"] = got[-1].tolist()
+    return out
+
+
+def _localisation_cli() -> dict:
+    """Phase 13 (d): the localisation CLI on the committed recording with
+    the fewest control steps, held to the fixture. ``locbench.check``
+    passes when one seed lies inside the JAX seeds' bounds, so the seeds
+    run in turn until one does (the same verdict as running them all)."""
+    import contextlib
+    import io
+
+    from acmpc_tpu_torch.bench import locbench
+    from acmpc_tpu_torch.cli import benchmark_localisation
+
+    track = locbench.track_of(LOC_CLI_RECORDING)
+    fixture = locbench.load_fixture()
+    rows = []
+    for seed in LOC_SEEDS:
+        argv = [
+            "--config", str(ROOT / "configs" / f"{track}.yaml"),
+            "--data", str(ROOT / "data" / "localisation" / LOC_CLI_RECORDING / "racing"),
+            "--map", str(ROOT / "data" / "maps" / f"{track}.npz"),
+            "--seed", str(seed), "--device", DEVICE,
+        ]
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            summary = benchmark_localisation.main(argv)
+        rows.append({"recording": LOC_CLI_RECORDING, "seed": seed, "max_steps": None,
+                     **summary, "wall_s": time.perf_counter() - t0})
+        if "Percentage of time localised" not in printed.getvalue():
+            raise RuntimeError("the localisation CLI printed no report")
+        if locbench.seeds_inside(rows, fixture):
+            break
+    fails = locbench.check(rows, fixture)
+    if fails:
+        raise RuntimeError(f"localisation CLI outside the JAX fixture's bounds: {fails}; {rows}")
+    return {"seeds_inside": locbench.seeds_inside(rows, fixture), "rows": rows}
+
+
+def phase_tools(agent: dict) -> dict:
+    """Phase 13: the raceline, the Pacejka model, the dashboard on the
+    racing agent and the localisation CLI."""
+    from acmpc_tpu_torch.bench import agent_loop
+
+    t_phase = time.perf_counter()
+    info: dict = {"raceline": _racelines(), "pacejka": _pacejka()}
+    run = agent_loop.racing_run(DASHBOARD_FRAMES, DEVICE, dashboard=True)
+    if run["fails"]:
+        raise RuntimeError(f"racing with the dashboard failed its gates: {run['fails']}; {run}")
+    alone = agent["racing"]
+    info["dashboard"] = {
+        **{k: run[k] for k in ("frames", "seconds", "distance_m", "max_offtrack_m", "launches")},
+        **run["dashboard"],
+        "with_dashboard": {k: run[k] for k in ("solves_per_s", "behaviour_p50_ms", "behaviour_p99_ms", "sim_step_p50_ms")},
+        "phase12_without": {k: alone[k] for k in ("solves_per_s", "behaviour_p50_ms", "behaviour_p99_ms", "sim_step_p50_ms")},
+    }
+    info["localisation_cli"] = _localisation_cli()
+    info["not_run"] = "cli/view_map and the --figure / --plot options need matplotlib, absent on the card machine"
+    launches = collections.Counter(info["raceline"]["launches"])
+    launches.update(run["launches"])
+    info["launches"] = dict(launches)
+    info["phase_s"] = time.perf_counter() - t_phase
+    info["card"] = card_line()
+    emit("phase 13 tools and dashboard", info)
+    return info
+
+
 def kernels_line(
-    kernel: dict, main: dict, mapping: dict, sweep: dict, multi: dict, perception: dict, agent: dict
+    kernel: dict, main: dict, mapping: dict, sweep: dict, multi: dict, perception: dict, agent: dict,
+    tools: dict,
 ) -> dict:
     """One row per kernel variant: launches from the paths that run it
-    (cluster: phases 4, 8, 9, 10 and 12; split: phases 6 and 12; stream:
+    (cluster: phases 4, 8, 9, 10, 12 and 13's racing agent; split: phases
+    6, 12 and 13's racelines; stream:
     none since the split kernel, so the count from phase 6 is 0; chain
-    edges: phase 10's loop and phase 12; chain scan: none since the
+    edges: phase 10's loop, phase 12 and 13's racing agent; chain scan: none since the
     chain-edges kernel, so the count from phase 10's loop is 0), numbers
     from phase 3 at the horizon-50
     B = 256 or the mapping shapes (stream: at the mapping shapes, on the
@@ -1319,10 +1594,12 @@ def kernels_line(
     h50, h50a = f"n{n50}_B{BATCH}", f"n{n50}_B{BATCH}_active"
     h100, h100a = f"n{n100}_B{MAPPING_BATCH}", f"n{n100}_B{MAPPING_BATCH}_active"
     cluster_paths = collections.Counter(agent["launches"])
-    for path in (main, sweep, multi, perception):
+    for path in (main, sweep, multi, perception, tools):
         cluster_paths.update(path["launches"])
     cluster_paths = {"launches": cluster_paths}
-    split_paths = {"launches": collections.Counter(mapping["launches"]) + collections.Counter(agent["launches"])}
+    split_paths = {"launches": sum(
+        (collections.Counter(p["launches"]) for p in (mapping, agent, tools)), collections.Counter()
+    )}
     scan = perception["chain_scan"]["band4"]
     edges = perception["chain_edges"]["band4"]
     return {
@@ -1351,8 +1628,9 @@ def kernels_line(
                 "route": "cuda",
                 "source": f"acmpc_tpu_torch/csrc/{chain.EDGES_SOURCE}",
                 "replaces": "acmpc_tpu/perception/tracks.py:62",
-                "launches": perception["launches"].get(chain.TRACK_CHAIN_EDGES, 0)
-                + agent["launches"].get(chain.TRACK_CHAIN_EDGES, 0),
+                "launches": sum(
+                    p["launches"].get(chain.TRACK_CHAIN_EDGES, 0) for p in (perception, agent, tools)
+                ),
                 "max_abs_err": perception["chain_edges"]["max_abs_err"],
                 "ms": edges["ms"],
                 "plain_ms": edges["plain_ms"],
@@ -1386,7 +1664,8 @@ def main() -> int:
     perception = phase_perception()
     phase_localisation()
     agent = phase_agent()
-    print(json.dumps(kernels_line(kernel, main_info, mapping, sweep, multi, perception, agent)))
+    tools = phase_tools(agent)
+    print(json.dumps(kernels_line(kernel, main_info, mapping, sweep, multi, perception, agent, tools)))
     print(card_line())
     print(json.dumps({
         "ok": True,

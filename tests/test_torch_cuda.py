@@ -811,3 +811,89 @@ def test_tsp_tour_builds_on_the_card_machine(cuda_device):
     points = np.float32(loop[rng.permutation(200)])
     order = native.tsp_tour(points, 3.0)
     np.testing.assert_array_equal(order, native._tsp_tour_numpy(points, 3.0))
+
+
+def _raceline_inputs():
+    """monza at the raceline CLI's cap (586 points) and its half widths."""
+    from acmpc_tpu_torch.cli import raceline as cli
+    from acmpc_tpu_torch.localise.track_map import load_track_map
+
+    tm = load_track_map(ROOT / "data" / "maps" / "monza.npz", device="cpu")
+    centre, left = tm.centre.numpy(), tm.left.numpy()
+    return cli.corridor(centre, left, cli.cap_stride(len(centre)))
+
+
+@pytest.mark.cuda
+def test_raceline_on_card_matches_cpu_through_the_split_kernel(cuda_device):
+    from acmpc_tpu_torch.ops.admm_chunk import SPLIT
+    from acmpc_tpu_torch.utils.raceline import offset_curvature, solve_raceline
+
+    centre, half = _raceline_inputs()
+    admm_chunk.launches.clear()
+    card = solve_raceline(centre, half, device=cuda_device)
+    launches = dict(admm_chunk.launches)
+    cpu = solve_raceline(centre, half, device="cpu")
+    iterations = sum(int(s.iterations) for s in card.solutions)
+    assert launches == {SPLIT: iterations // 25}
+    assert all(bool(s.solved) for s in card.solutions)
+    a, b = card.alpha.cpu().numpy(), cpu.alpha.numpy()
+    # what the QPs' stopping rule fixes (tests/test_torch_raceline.py):
+    # the curvature profile and its squared sum, alpha within the margin
+    c = torch.tensor(centre, dtype=torch.float32)
+
+    def kappa(alpha):
+        return offset_curvature(c, torch.tensor(alpha)).numpy()
+
+    assert np.abs(kappa(a) - kappa(b)).max() <= 0.1 * np.abs(kappa(b)).max()
+    assert float((kappa(a) ** 2).sum()) == pytest.approx(float((kappa(b) ** 2).sum()), rel=5e-3)
+    np.testing.assert_allclose(a, b, atol=1.0, rtol=0)
+    bound = np.maximum(half - 1.0, 0.0)
+    assert np.max(np.abs(a) - bound) <= max(0.0, np.max(np.abs(b) - bound)) + 1e-3
+
+
+@pytest.mark.cuda
+def test_render_panels_takes_cuda_tensors(cuda_device):
+    from acmpc_tpu_torch.dashboard.server import FEED_NAMES, Dashboard
+    from acmpc_tpu_torch.localise.localiser import Localiser
+    from acmpc_tpu_torch.config import load_config
+
+    agent = type("FakeAgent", (), {})()
+    agent._latest_frames = {
+        "camera": torch.randint(0, 256, (736, 1280, 3), dtype=torch.uint8, device=cuda_device),
+        "segmentation": torch.rand(736, 1280, device=cuda_device) > 0.5,
+        "semantics": torch.randint(0, 10, (736, 1280), device=cuda_device),
+    }
+    agent._latest_tracks = {"centre": np.stack([np.zeros(10), np.arange(10.0)], 1)}
+    agent._latest_state = {}
+    agent.controller = type("C", (), {"predicted_locations": np.zeros((20, 2))})()
+    cfg = load_config(ROOT / "configs" / "monza.yaml")
+    agent.localiser = Localiser(cfg.localisation, str(ROOT / cfg.map_path), device=cuda_device)
+    dash = Dashboard(agent, None, port=0)
+    dash._attach("composite", +1)
+    panels = dash._render_panels()
+    assert set(panels) == set(FEED_NAMES)
+    assert all(isinstance(p, np.ndarray) and p.dtype == np.uint8 for p in panels.values())
+    assert panels["camera"].shape == (736, 1280, 3) and panels["semantics"].shape == (736, 1280, 3)
+    dash.render_once()
+    assert dash.render_errors == 0
+    for name in (*FEED_NAMES, "composite"):
+        frame = dash._frame(name)
+        assert frame[:2] == b"\xff\xd8" and frame[-2:] == b"\xff\xd9", name
+
+
+@pytest.mark.cuda
+def test_pacejka_on_card_matches_cpu(cuda_device):
+    from acmpc_tpu_torch.dynamics import pacejka
+
+    for data in (pacejka.ACCELERATION_DATA, pacejka.BRAKING_DATA):
+        np.testing.assert_allclose(
+            pacejka.fit_long_force(data, device=cuda_device),
+            pacejka.fit_long_force(data, device="cpu"), rtol=1e-4, atol=1e-5,
+        )
+    card = pacejka.DynamicBicycleModel(device=cuda_device)
+    cpu = pacejka.DynamicBicycleModel(device="cpu")
+    state = np.array([0.0, 0.0, 0.0, 10.0, 0.0, 0.0])
+    controls = np.tile(np.array([0.1, 1.0]), (40, 1))
+    got = card.rollout(state, controls)
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), cpu.rollout(state, controls).numpy(), rtol=1e-4, atol=1e-4)

@@ -185,7 +185,10 @@ def test_race_cli_drives_a_remote_simulator(small_track, capsys):
 
 
 def test_race_cli_has_no_dashboard_and_defaults_to_cuda():
+    # the name predates the dashboard's port: --dashboard now parses, off
+    # unless given, and the device still defaults to cuda
     args = race.parse_arguments(["--config", "c.yaml"])
-    assert args.device == "cuda" and not hasattr(args, "dashboard")
+    assert args.device == "cuda" and args.dashboard is False
+    assert race.parse_arguments(["--config", "c.yaml", "--dashboard"]).dashboard is True
     with pytest.raises(SystemExit):
-        race.parse_arguments(["--config", "c.yaml", "--dashboard"])
+        race.parse_arguments(["--config", "c.yaml", "--dashboard=yes"])
