@@ -31,6 +31,7 @@ from acmpc_tpu_torch.qp.speed_profile import (
     SpeedProfileConstraints,
     SpeedProfileSolution,
     solve_speed_profile,
+    solve_speed_profile_sharded,
 )
 
 # iteration cap of the reference controller
@@ -191,13 +192,27 @@ class SpatialMPC:
         return construct_waypoints(self._tensor(waypoint_coordinates))
 
     def compute_map_speed_profile(
-        self, path: ReferencePath, ay_max: float, a_min: float
+        self,
+        path: ReferencePath,
+        ay_max: float,
+        a_min: float,
+        mesh=None,
+        axis_name: str | None = None,
     ) -> ReferencePath:
         """Full-track speed profile with map-specific lateral/brake limits;
-        keeps the path's velocities where the profile is infeasible."""
+        keeps the path's velocities where the profile is infeasible.
+
+        With ``mesh`` (a ``parallel.mesh.Mesh``) the map itself is sharded
+        over ``axis_name`` (the mesh's first axis by default): each rank
+        solves a contiguous slab and the (min,+) block summaries combine
+        across ranks (``solve_speed_profile_sharded``); every rank returns
+        the whole profile.
+        """
         constraints = dataclasses.replace(
             self.config.constraints, ay_max=ay_max, a_min=a_min
         )
+        if mesh is not None:
+            return self._map_speed_profile_sharded(path, constraints, mesh, axis_name)
         sol = solve_speed_profile(
             path.distances,
             path.kappas,
@@ -208,6 +223,28 @@ class SpatialMPC:
         )
         velocities = _select(sol.status == 1, sol.velocities, path.velocities)
         return dataclasses.replace(path, velocities=velocities)
+
+    def _map_speed_profile_sharded(
+        self, path: ReferencePath, constraints, mesh, axis_name
+    ) -> ReferencePath:
+        axis = axis_name or mesh.axis_names[0]
+        n_dev = mesh.axis_size(axis)
+        n = path.n_points
+        pad = (-n) % n_dev
+        # neutral padding after the map's end: kappa 0 gives the largest
+        # cap, so the backward pass cannot tighten a real waypoint through
+        # it; the padded outputs are dropped
+        ds = torch.cat([path.distances, torch.ones(pad, dtype=self.dtype, device=path.distances.device)])
+        ks = torch.cat([path.kappas, torch.zeros(pad, dtype=self.dtype, device=path.kappas.device)])
+        rows = (n + pad) // n_dev
+        mine = slice(mesh.axis_index(axis) * rows, (mesh.axis_index(axis) + 1) * rows)
+        v_local = solve_speed_profile_sharded(
+            ds[mine], ks[mine], constraints, mesh, axis,
+            v_max_runtime=constraints.v_max, localised=False, use_end_velocity=False,
+        )
+        v = mesh.all_gather(v_local, axis).reshape(-1)[:n]
+        feasible = torch.all(v >= constraints.v_min - 1e-4)
+        return dataclasses.replace(path, velocities=torch.where(feasible, v, path.velocities))
 
     def _prepare(self, state, reference_path, v_max_runtime, is_localised, offset):
         """Waypoints + speed profile + QP assembly, over any leading batch

@@ -135,6 +135,32 @@ Phases, each printing one line:
      ``bench/locbench.check``. The map
      viewer and the CLIs' ``--figure`` and ``--plot`` need matplotlib,
      which the card machine lacks; this phase does not run them.
+  14. the parallel layer (``parallel/``, ``cli/launch_pod.py``, the
+     horizon-sharded speed profiles): (a) an NCCL process group of one
+     rank, made and destroyed in the phase: ``sharded_get_control`` on
+     phase 4's inputs (one cold step with skipping, five warm), 256 of 256
+     solved a step, equal to ``batched_get_control_fused`` on the same
+     inputs, both cluster variants launched, and the sharded map profile
+     on synth_nordschleife's 43,940 centre points equal to the unsharded
+     one; (b) two ranks sharing the card over gloo, spawned by the phase
+     (``bench/pod_sweep.py``): ``sharded_lap_sweep`` at the launch CLI's
+     operating point (synth_nordschleife, 32 scenarios a rank, 25 steps,
+     horizon 50, RTI 50), one cluster launch a step on each rank,
+     64 x 25 solves at a success of at least 0.99, speeds within
+     tests/test_torch_lap_sweep.py's LOOP_TOL of one process's
+     ``run_fused`` on the same 64 scenarios, closed-loop solves/s of both;
+     then the launch CLI as two gloo ranks (``run_two_process_smoke``), the
+     sweep and ``--full-lap`` for 300 steps at one scenario a rank, checked
+     as tests/test_multiprocess_distributed.py checks JAX's; (c) in the
+     same two ranks, the sharded exact map profile (monza's map limits) on
+     synth_nordschleife's and monza's maps within the 2 ulps of the
+     unsharded one that tests/test_torch_parallel.py states, and the
+     sharded ADMM profile at 2,048 points in the unsharded one's
+     iterations, within 1e-3 / 2e-3; walls, iterations, a collective's cost;
+     (d) the ops alone on the card against the CPU, with times, launches,
+     bounds: PCR at N = 43,940, the SPIKE solve at two ranks, and
+     ``spd_inverse`` on the (256, 248, 248) KKT matrices of phase 4's
+     inputs beside the Cholesky route (``_factor``) on the same matrices.
 Then the kernels line, the card line and, last, the result line. Any
 failure raises and the exit code is not 0. Without a CUDA device it
 exits with code 2 and prints no result.
@@ -212,6 +238,17 @@ RACELINE_CURVATURE_RTOL, RACELINE_VIOLATION_SLACK = 5e-3, 1e-3
 PACEJKA_TOL = 1e-4
 DASHBOARD_FRAMES = 60
 LOC_CLI_RECORDING = "vallelunga_synth"
+# phase 14: ranks that share the card, the sharded exact profile's
+# bound against the unsharded one on a real map (tests/test_torch_parallel.py:
+# braking chains that cross a block edge are summed block by block), the
+# closed loop's tolerance (tests/test_torch_lap_sweep.py's LOOP_TOL), the
+# ADMM profile's (tests/test_horizon_sharded.py) and the launch CLI's
+# full-lap steps
+PARALLEL_RANKS = 2
+REAL_MAP_ULPS = 2
+LOOP_TOL = dict(rtol=5e-3, atol=5e-2)
+ADMM_TOL = dict(rtol=1e-3, atol=2e-3)
+CLI_LAP_STEPS = 300
 N_ITERS, ALPHA = 25, 1.6
 TRACKS = [
     "monza", "spa", "silverstone", "nordschleife",
@@ -1556,12 +1593,275 @@ def phase_tools(agent: dict) -> dict:
     return info
 
 
+def _parallel_world_of_one() -> dict:
+    """(a): an NCCL process group of one rank, made and destroyed here:
+    the sharded control step on phase 4's inputs against the fused step
+    on the same inputs, and the sharded map profile against the
+    unsharded one."""
+    import torch
+    import torch.distributed as dist
+
+    from acmpc_tpu_torch.bench.pod_sweep import max_ulps, profile_path
+    from acmpc_tpu_torch.config import load_config
+    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER, CLUSTER_ACTIVE
+    from acmpc_tpu_torch.parallel import make_mesh, sharded_get_control
+    from acmpc_tpu_torch.parallel.multihost import start_process_group
+
+    mpc = make_mpc("monza", DEVICE)
+    skipping = make_mpc("monza", DEVICE)
+    skipping.admm = dataclasses.replace(skipping.admm, tile_skip=True)
+    refs = torch.as_tensor(difficulty_ramp(HORIZON, BATCH), device=DEVICE)
+    states0 = mpc.initial_state(BATCH)
+    fused = [skipping.batched_get_control_fused(states0, refs)[0]]
+    for _ in range(5):
+        fused.append(mpc.batched_get_control_fused(fused[-1], refs)[0])
+    limits = load_config(ROOT / "configs" / "monza.yaml").map_speed_profile
+    path = profile_path(mpc, "synth_nordschleife")
+    single = mpc.compute_map_speed_profile(path, limits.ay_max, limits.a_min).velocities
+
+    start_process_group(None, 1, 0, device=DEVICE, backend="nccl")
+    try:
+        mesh = make_mesh(device=DEVICE)
+        cold, warm = sharded_get_control(skipping, mesh), sharded_get_control(mpc, mesh)
+
+        def drive():
+            steps, fleets = [], []
+            for i in range(6):
+                new, fleet = (warm if steps else cold)(steps[-1] if steps else states0, refs)
+                steps.append(new)
+                fleets.append({k: float(v) for k, v in fleet.items()})
+            return steps, fleets
+
+        (steps, fleets), launches = _counted(drive)
+        sharded = mpc.compute_map_speed_profile(path, limits.ay_max, limits.a_min, mesh=mesh).velocities
+        backend, calls = mesh.backend, dict(mesh.calls)
+    finally:
+        dist.destroy_process_group()
+
+    if backend != "nccl":
+        raise RuntimeError(f"parallel (a): backend {backend}")
+    solved = [int(f["n_solved"]) for f in fleets]
+    if solved != [BATCH] * 6:
+        raise RuntimeError(f"parallel (a): n_solved per step {solved}, not {BATCH}")
+    for name in (CLUSTER, CLUSTER_ACTIVE):
+        if launches.get(name, 0) == 0:
+            raise RuntimeError(f"parallel (a): never launched {name}")
+    err = max(float((s.projected_control - f.projected_control).abs().max()) for s, f in zip(steps, fused))
+    if err != 0.0:
+        raise RuntimeError(f"parallel (a): the sharded step is not the fused step: {err}")
+    if not torch.equal(sharded, single):
+        ulps = max_ulps(sharded.cpu().numpy(), single.cpu().numpy())
+        raise RuntimeError(f"parallel (a): the world-of-one map profile differs by {ulps} ulps")
+    return {
+        "backend": backend,
+        "batch": BATCH,
+        "n_solved_per_step": solved,
+        "worst_r_prim": max(f["worst_r_prim"] for f in fleets),
+        "max_abs_err_vs_fused": err,
+        "launches": launches,
+        "collective_calls": calls,
+        "map_points": int(single.shape[0]),
+        "map_profile_bit_equal": True,
+    }
+
+
+def _parallel_ranks() -> dict:
+    """(b) and (c): two ranks sharing the card over gloo, spawned here
+    (one launch runs both cases), against one process; then the launch
+    CLI in both of its modes."""
+    from acmpc_tpu_torch.bench import pod_sweep
+    from acmpc_tpu_torch.cli.launch_pod import run_two_process_smoke
+
+    t0 = time.perf_counter()
+    results = pod_sweep.launch(("sweep", "profiles"), PARALLEL_RANKS, DEVICE, "gloo")
+    launch_s = time.perf_counter() - t0
+
+    # (b) the sweep
+    one = pod_sweep.single_sweep(DEVICE, pod_sweep.SCENARIOS_PER_RANK * PARALLEL_RANKS)
+    sweep = pod_sweep.compare("sweep", results["sweep"], one)
+    n_solves = pod_sweep.SCENARIOS_PER_RANK * PARALLEL_RANKS * pod_sweep.STEPS
+    for r, rank in enumerate(sweep["ranks"]):
+        _check_closed_loop(f"parallel (b) rank {r}", pod_sweep.STEPS, rank["launches"],
+                           rank["n_solved"] / rank["n_solves"], 0.99)
+        if rank["n_solves"] != n_solves:
+            raise RuntimeError(f"parallel (b) rank {r}: n_solves {rank['n_solves']}, not {n_solves}")
+    v = np.concatenate([arrays["v"] for _, arrays in results["sweep"]])
+    if not np.allclose(v, one["v"], **LOOP_TOL):
+        raise RuntimeError(f"parallel (b): two ranks' speeds {sweep['max_abs_v_err']} from one process's")
+
+    # (c) the horizon-sharded profiles
+    single = pod_sweep.single_profiles(DEVICE)
+    profiles = pod_sweep.compare("profiles", results["profiles"], single)
+    for name in pod_sweep.PROFILE_MAPS:
+        if profiles[f"map_{name}_max_ulps"] > REAL_MAP_ULPS:
+            raise RuntimeError(f"parallel (c): {name}: {profiles[f'map_{name}_max_ulps']} ulps")
+    for r, (rank, arrays) in enumerate(results["profiles"]):
+        if rank["admm_status"] != 1 or rank["admm_iterations"] != single["admm_iterations"]:
+            raise RuntimeError(
+                f"parallel (c) rank {r}: ADMM status {rank['admm_status']} in "
+                f"{rank['admm_iterations']} iterations, one process {single['admm_iterations']}"
+            )
+    admm_v = np.concatenate([arrays["admm_v"] for _, arrays in results["profiles"]])
+    if not np.allclose(admm_v, single["admm_v"], **ADMM_TOL):
+        raise RuntimeError(f"parallel (c): ADMM velocities {profiles['admm_max_abs_err']} apart")
+
+    # the launch CLI, as tests/test_multiprocess_distributed.py checks it
+    cli_sweep = run_two_process_smoke(device=DEVICE, backend="gloo")
+    got = [cli_sweep[k] for k in ("hosts", "chips", "mesh", "scenarios", "success_rate")]
+    if got != [2, 2, {"host": 2, "chip": 1}, 4, 1.0] or not cli_sweep["solves_per_s"] > 0:
+        raise RuntimeError(f"parallel: launch CLI sweep {cli_sweep}")
+    cli_lap = run_two_process_smoke(
+        scenarios_per_chip=1, steps=CLI_LAP_STEPS, full_lap=True, device=DEVICE, backend="gloo"
+    )
+    got = [cli_lap[k] for k in ("mode", "hosts", "total_solves", "solve_success_rate", "completed_laps")]
+    if got != ["full_lap", 2, cli_lap["scenarios"] * CLI_LAP_STEPS, 1.0, 0]:
+        raise RuntimeError(f"parallel: launch CLI full lap {cli_lap}")
+    return {
+        "launch_s": launch_s,
+        "sweep": sweep,
+        "launches": [rank["launches"] for rank in sweep["ranks"]],
+        "profiles": profiles,
+        "cli_sweep": cli_sweep,
+        "cli_full_lap": cli_lap,
+    }
+
+
+def _pcr_bound(n: int, rhs: int = 1) -> tuple[float, str]:
+    """Least time of a PCR solve of ``rhs`` systems of n rows on an H100:
+    sub, diag, sup, rhs read and x written once, against ~12 fp32
+    operations a row a step over ceil(log2 n) steps."""
+    n_bytes = 4 * n * (3 + 2 * rhs)
+    flops = rhs * n * (12 * int(np.ceil(np.log2(n))) + 1)
+    t_bytes, t_flops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations")
+
+
+def _spd_bound(batch: int, n: int) -> tuple[float, str]:
+    """Least time of ``spd_inverse`` on (batch, n, n): K read and M written
+    once, against the recursion's matmuls (4/3 p^3 at the padded size p)
+    and two polishes (8 n^3)."""
+    p = 1 << (n - 1).bit_length()
+    n_bytes = 2 * 4 * batch * n * n
+    flops = batch * (4 * p**3 / 3 + 8 * n**3)
+    t_bytes, t_flops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations")
+
+
+def _parallel_ops(ranks: dict) -> dict:
+    """(d): the ops alone, on the card against the CPU: PCR at N = 43,940,
+    the SPIKE solve at two ranks (timed in the ranks), and spd_inverse at
+    (256, 248, 248) on real horizon-50 KKT matrices beside the Cholesky
+    route (``_factor``) on the same matrices."""
+    import torch
+
+    from acmpc_tpu_torch.bench.pod_sweep import SPIKE_N, launches_per_call, spike_system
+    from acmpc_tpu_torch.ops import spd_inverse, tridiag_solve
+    from acmpc_tpu_torch.qp.admm import _factor, _rho_vector, _ruiz_equilibrate
+
+    cpu_parts = [torch.as_tensor(a) for a in spike_system()]
+    parts = [a.to(DEVICE) for a in cpu_parts]
+    pcr_err = float((tridiag_solve(*parts).cpu() - tridiag_solve(*cpu_parts)).abs().max())
+    if pcr_err > 1e-6:
+        raise RuntimeError(f"parallel (d): PCR on the card {pcr_err} from the CPU")
+    pcr_bound, pcr_by = _pcr_bound(SPIKE_N)
+    profiles = ranks["profiles"]
+    spike_bound, spike_by = _pcr_bound(SPIKE_N // PARALLEL_RANKS, rhs=3)
+    if profiles["spike_max_abs_err"] > 1e-5:
+        raise RuntimeError(f"parallel (d): SPIKE {profiles['spike_max_abs_err']} from PCR")
+    # the interface system's solve alone: 2S x 2S, one call of the library
+    interface = torch.eye(2 * PARALLEL_RANKS, device=DEVICE) * 2.0 + 0.1
+    rhs = torch.ones(2 * PARALLEL_RANKS, 1, device=DEVICE)
+
+    mpc = make_mpc("monza", DEVICE)
+    refs = torch.as_tensor(difficulty_ramp(HORIZON, BATCH), device=DEVICE)
+    zeros = torch.zeros(BATCH, device=DEVICE)
+    _, _, (P, q, A, l, u) = mpc._prepare(
+        mpc.initial_state(BATCH), refs, torch.full((BATCH,), mpc.config.constraints.v_max, device=DEVICE),
+        torch.zeros(BATCH, dtype=torch.bool, device=DEVICE), zeros,
+    )
+    Ps, _, As, _, _, e = _ruiz_equilibrate(P, q, A, mpc.admm.scaling_iters)
+    rho = _rho_vector(torch.tensor(mpc.admm.rho, device=DEVICE), e * l, e * u)
+    sigma = mpc.admm.sigma
+    n = P.shape[-1]
+    eye = torch.eye(n, device=DEVICE)
+    K = Ps + sigma * eye + (As.transpose(-1, -2) * rho[..., None, :]) @ As
+    M_spd = spd_inverse(K)
+    M_chol = _factor(Ps, As, rho, sigma)
+    r_spd = float((eye - K @ M_spd).abs().amax(dim=(1, 2)).max())
+    r_chol = (eye - K @ M_chol).abs().amax(dim=(1, 2))
+    ratio = float(((eye - K @ M_spd).abs().amax(dim=(1, 2)) / torch.clamp(r_chol, min=1e-6)).max())
+    spd_vs_chol = float((M_spd - M_chol).abs().max() / M_chol.abs().max())
+    cpu_idx = torch.arange(0, BATCH, BATCH // 8, device=DEVICE)
+    spd_cpu_err = float(
+        (spd_inverse(K[cpu_idx].cpu()) - M_spd[cpu_idx].cpu()).abs().max() / M_spd.abs().max().cpu()
+    )
+    if r_spd >= 1e-3 or ratio > 10.0 or spd_cpu_err > 1e-3:
+        raise RuntimeError(
+            f"parallel (d): spd_inverse residual {r_spd}, {ratio}x the Cholesky route's, "
+            f"card against CPU {spd_cpu_err}"
+        )
+    spd_bound, spd_by = _spd_bound(BATCH, n)
+    return {
+        "pcr": {
+            "n": SPIKE_N, "ms": time_cuda_ms(lambda: tridiag_solve(*parts), 20),
+            "launches": launches_per_call(lambda: tridiag_solve(*parts)),
+            "max_abs_err_vs_cpu": pcr_err, "bound_ms": pcr_bound, "bound_by": pcr_by, "library_ms": None,
+        },
+        "spike": {
+            "n": SPIKE_N, "ranks": PARALLEL_RANKS,
+            "ms": max(r["spike_ms"] for r in profiles["ranks"]),
+            "launches": profiles["ranks"][0].get("spike_launches"),
+            "max_abs_err_vs_pcr": profiles["spike_max_abs_err"],
+            "bound_ms": spike_bound, "bound_by": spike_by,
+            "library_ms": time_cuda_ms(lambda: torch.linalg.solve(interface, rhs), 50),
+            "psum_ms": [r["psum_ms"] for r in profiles["ranks"]],
+            "shift_ms": [r["shift_ms"] for r in profiles["ranks"]],
+        },
+        "spd_inverse": {
+            "shape": list(K.shape),
+            "ms": time_cuda_ms(lambda: spd_inverse(K), 10),
+            "launches": launches_per_call(lambda: spd_inverse(K)),
+            "residual_max": r_spd, "residual_vs_cholesky_max": ratio,
+            "rel_err_vs_cholesky": spd_vs_chol, "rel_err_vs_cpu": spd_cpu_err,
+            "bound_ms": spd_bound, "bound_by": spd_by,
+            "factor_ms": time_cuda_ms(lambda: _factor(Ps, As, rho, sigma), 10),
+            "factor_launches": launches_per_call(lambda: _factor(Ps, As, rho, sigma)),
+            "library_inv_ms": time_cuda_ms(lambda: torch.linalg.inv(K), 10),
+            "library_cholesky_inverse_ms": time_cuda_ms(
+                lambda: torch.cholesky_inverse(torch.linalg.cholesky(K)), 10
+            ),
+        },
+    }
+
+
+def phase_parallel() -> dict:
+    t0 = time.perf_counter()
+    world_of_one = _parallel_world_of_one()
+    ranks = _parallel_ranks()
+    ops = _parallel_ops(ranks)
+    launches = collections.Counter(world_of_one["launches"])
+    for counts in ranks["launches"]:
+        launches.update(counts)
+    info = {
+        "world_of_one": world_of_one,
+        **{k: v for k, v in ranks.items() if k != "launches"},
+        "rank_launches": ranks["launches"],
+        "ops": ops,
+        "launches": dict(launches),
+        "wall_s": time.perf_counter() - t0,
+        "card": card_line(),
+    }
+    emit("phase 14 parallel", info)
+    return info
+
+
 def kernels_line(
     kernel: dict, main: dict, mapping: dict, sweep: dict, multi: dict, perception: dict, agent: dict,
-    tools: dict,
+    tools: dict, parallel: dict,
 ) -> dict:
     """One row per kernel variant: launches from the paths that run it
-    (cluster: phases 4, 8, 9, 10, 12 and 13's racing agent; split: phases
+    (cluster: phases 4, 8, 9, 10, 12, 13's racing agent and 14's world of
+    one and two ranks; split: phases
     6, 12 and 13's racelines; stream:
     none since the split kernel, so the count from phase 6 is 0; chain
     edges: phase 10's loop, phase 12 and 13's racing agent; chain scan: none since the
@@ -1594,7 +1894,7 @@ def kernels_line(
     h50, h50a = f"n{n50}_B{BATCH}", f"n{n50}_B{BATCH}_active"
     h100, h100a = f"n{n100}_B{MAPPING_BATCH}", f"n{n100}_B{MAPPING_BATCH}_active"
     cluster_paths = collections.Counter(agent["launches"])
-    for path in (main, sweep, multi, perception, tools):
+    for path in (main, sweep, multi, perception, tools, parallel):
         cluster_paths.update(path["launches"])
     cluster_paths = {"launches": cluster_paths}
     split_paths = {"launches": sum(
@@ -1665,7 +1965,10 @@ def main() -> int:
     phase_localisation()
     agent = phase_agent()
     tools = phase_tools(agent)
-    print(json.dumps(kernels_line(kernel, main_info, mapping, sweep, multi, perception, agent, tools)))
+    parallel = phase_parallel()
+    print(json.dumps(kernels_line(
+        kernel, main_info, mapping, sweep, multi, perception, agent, tools, parallel
+    )))
     print(card_line())
     print(json.dumps({
         "ok": True,

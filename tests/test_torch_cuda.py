@@ -897,3 +897,57 @@ def test_pacejka_on_card_matches_cpu(cuda_device):
     got = card.rollout(state, controls)
     assert got.device.type == "cuda"
     np.testing.assert_allclose(got.cpu().numpy(), cpu.rollout(state, controls).numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_sharded_get_control_nccl_world_of_one_on_card(cuda_device):
+    """An NCCL process group of one rank on the card: the sharded step is
+    the fused batched step, and the fleet reductions run through NCCL."""
+    import torch.distributed as dist
+
+    from acmpc_tpu_torch.cli.launch_pod import racing_mpc
+    from acmpc_tpu_torch.geometry.tracks import get_curved_track, with_widths
+    from acmpc_tpu_torch.parallel import make_mesh, sharded_get_control
+    from acmpc_tpu_torch.parallel.multihost import start_process_group
+
+    mpc = racing_mpc(cuda_device, rti=None)
+    refs = torch.as_tensor(np.stack([
+        with_widths(get_curved_track(c, 50, angle=-np.pi / 2)) for c in np.linspace(5e-4, 0.02, 8)
+    ]).astype(np.float32), device=cuda_device)
+    want, _ = mpc.batched_get_control_fused(mpc.initial_state(8), refs)
+    start_process_group(None, 1, 0, device=cuda_device, backend="nccl")
+    try:
+        mesh = make_mesh(device=cuda_device)
+        assert mesh.backend == "nccl" and mesh.size == 1
+        got, fleet = sharded_get_control(mpc, mesh)(mpc.initial_state(8), refs)
+        assert int(fleet["n_solved"]) == 8
+        assert float(fleet["worst_r_prim"]) >= 0.0
+        assert dict(mesh.calls) == {"psum": 1, "pmax": 2}
+    finally:
+        dist.destroy_process_group()
+    torch.testing.assert_close(got.projected_control, want.projected_control, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_tridiag_solve_and_spd_inverse_on_card_match_cpu(cuda_device):
+    """PCR at a map's size and the block-Schur inverse at the horizon-50
+    KKT size, on the card against the CPU: the same fp32 steps (PCR is
+    elementwise; the inverse's matmuls differ in summation order, so
+    its residual is held and the two agree to 1e-4 of their scale)."""
+    from acmpc_tpu_torch.bench.pod_sweep import spike_system
+    from acmpc_tpu_torch.ops import spd_inverse, tridiag_solve
+
+    parts = [torch.as_tensor(a) for a in spike_system()]
+    cpu = tridiag_solve(*parts)
+    card = tridiag_solve(*(p.to(cuda_device) for p in parts))
+    torch.testing.assert_close(card.cpu(), cpu, rtol=1e-6, atol=1e-6)
+
+    rng = np.random.default_rng(0)
+    n = 248
+    M = rng.normal(size=(4, n, n)).astype(np.float32)
+    K = torch.as_tensor(M @ np.swapaxes(M, -1, -2) + n * np.eye(n, dtype=np.float32))
+    cpu = spd_inverse(K)
+    card = spd_inverse(K.to(cuda_device))
+    eye = torch.eye(n, device=cuda_device)
+    assert float((eye - K.to(cuda_device) @ card).abs().max()) < 1e-3
+    torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=1e-4 * float(cpu.abs().max()))
