@@ -4,9 +4,11 @@ Counterpart of ``acmpc_tpu/bench/lap_sweep.py``. Per step, each scenario
 takes its own map window in the ego frame, the batched MPC solves every
 scenario at once, each car samples its active command and a kinematic
 bicycle integrates it. The scenario axis is written out in front of
-every tensor; ``run_fused`` dispatches the steps from the host and reads
-nothing back until the sweep ends, so in real-time-iteration mode (a
-fixed ADMM budget per solve) the loop never waits on the card.
+every tensor. ``run`` solves each step with ``batched_get_control``
+(every scenario as it would be alone), ``run_fused`` with the fused,
+fixed-rho engine; both dispatch the steps from the host and read back
+only the solve's chunk flag, so in real-time-iteration mode (a fixed
+ADMM budget per solve) the loop never waits on the card.
 
 The per-scenario runtime knobs (start index, lateral offset, runtime
 speed cap) are the perturbation axes of the robustness sweeps.
@@ -235,63 +237,50 @@ class LapSweep:
         _, i0 = self._ego_window(cars)
         return cars, states, i0
 
-    def fused_step(self, cars: CarState, states: MPCState, v_max, prev_i0):
+    def _step(self, cars: CarState, states: MPCState, v_max, prev_i0, get_control):
         """One closed-loop step of every scenario: windows, the shifted
         warm start (real-time iteration: the carried iterates advance by
-        the stages each window slid), one batched MPC solve, integration.
-        Returns (cars, states, metrics, i0)."""
+        the stages each window slid), one batched MPC solve through
+        ``get_control``, integration. Returns (cars, states, metrics, i0)."""
         refs, i0 = self._ego_window(cars)
         states = shift_warm_start(states, self._shift_stages(i0, prev_i0), self.mpc.horizon)
         localised = torch.full(i0.shape, self._speeds is not None, device=i0.device)
-        states, diags = self.mpc.batched_get_control_fused(
-            states, refs, v_max=self._runtime_v_max(v_max, i0), is_localised=localised
+        states, diags = get_control(
+            states, refs, self._runtime_v_max(v_max, i0), is_localised=localised
         )
         cars, metrics = self._integrate(cars, states, i0)
         metrics["control_iterations"] = diags.control_iterations
         metrics["control_status"] = diags.control_status
         return cars, states, metrics, i0
 
-    def run_fused(self, grid: SweepGrid, n_steps: int):
-        """Closed-loop sweep with the whole scenario batch in each step.
-        Returns (final cars, metrics stacked (B, n_steps))."""
+    def fused_step(self, cars: CarState, states: MPCState, v_max, prev_i0):
+        """:meth:`_step` on the fused, fixed-rho engine
+        (``batched_get_control_fused``)."""
+        return self._step(cars, states, v_max, prev_i0, self.mpc.batched_get_control_fused)
+
+    def _run(self, grid: SweepGrid, n_steps: int, get_control):
         cars, states, prev_i0 = self.start(grid)
         per_step = []
         for _ in range(n_steps):
-            cars, states, metrics, prev_i0 = self.fused_step(cars, states, grid.v_max, prev_i0)
+            cars, states, metrics, prev_i0 = self._step(
+                cars, states, grid.v_max, prev_i0, get_control
+            )
             per_step.append(metrics)
         return cars, _stack_steps(per_step)
 
+    def run_fused(self, grid: SweepGrid, n_steps: int):
+        """Closed-loop sweep with the whole scenario batch in each step,
+        on the fused engine. Returns (final cars, metrics stacked
+        (B, n_steps))."""
+        return self._run(grid, n_steps, self.mpc.batched_get_control_fused)
+
     def run(self, grid: SweepGrid, n_steps: int):
-        """The per-scenario counterpart: each scenario alone, one
-        ``get_control`` solve per step. Returns (final cars (B,),
-        metrics stacked (B, n_steps))."""
-        localised = self._speeds is not None
-        final, rows = [], []
-        for b in range(grid.start_index.shape[0]):
-            row = SweepGrid(*(getattr(grid, f.name)[b] for f in dataclasses.fields(grid)))
-            car = self._init_car(row)
-            state = self.mpc.initial_state()
-            _, prev_i0 = self._ego_window(car)
-            per_step = []
-            for _ in range(n_steps):
-                ref, i0 = self._ego_window(car)
-                state = shift_warm_start(state, self._shift_stages(i0, prev_i0), self.mpc.horizon)
-                state, diags = self.mpc.get_control(
-                    state, ref,
-                    v_max_runtime=self._runtime_v_max(row.v_max, i0),
-                    is_localised=localised,
-                )
-                car, metrics = self._integrate(car, state, i0)
-                metrics["control_iterations"] = diags.control_iterations
-                metrics["control_status"] = diags.control_status
-                per_step.append(metrics)
-                prev_i0 = i0
-            final.append(car)
-            rows.append({k: torch.stack([m[k] for m in per_step]) for k in per_step[0]})
-        cars = CarState(
-            *(torch.stack([getattr(c, f.name) for c in final]) for f in dataclasses.fields(CarState))
-        )
-        return cars, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+        """Closed-loop sweep of every scenario, each step one
+        ``batched_get_control`` (every scenario solved as it would be
+        alone): the counterpart of the JAX package's ``jit(vmap(scenario))``
+        of a scan. Returns (final cars (B,), metrics stacked
+        (B, n_steps))."""
+        return self._run(grid, n_steps, self.mpc.batched_get_control)
 
     def summarise(self, metrics, n_steps: int) -> dict:
         v = _host(metrics["v"])

@@ -1,7 +1,7 @@
 """The parallel layer across ranks: the sharded closed-loop sweep and the
 horizon-sharded speed profiles, each rank a process.
 
-Two cases, each run by ``launch`` in ``ranks`` processes (a file store
+Three cases, each run by ``launch`` in ``ranks`` processes (a file store
 for the rendezvous) that write their results to a directory:
 
 * ``sweep``: ``sharded_lap_sweep`` at the launch CLI's operating point
@@ -15,7 +15,12 @@ for the rendezvous) that write their results to a directory:
   map; ``solve_speed_profile_admm_sharded`` on a 2,048-point track
   (tests/test_horizon_sharded.py's, ``max_iter`` 20,000); the SPIKE
   solve at N = 43,940; and the cost of one collective call (a 0-d psum,
-  and a one-element shift), each timed on the rank's device.
+  and a one-element shift), each timed on the rank's device;
+* ``submesh``: ``make_mesh(1)`` made by every rank: rank 0 runs
+  ``sharded_get_control`` (monza's racing control at horizon 50, to
+  convergence) on two battery windows, and ``batched_get_control`` on the
+  same for reference; every other rank holds no rows, and its collective
+  raises.
 
 ``single_sweep`` and ``single_profiles`` compute the one-process
 references on one device, and ``compare`` holds the sharded results
@@ -44,12 +49,18 @@ from acmpc_tpu_torch.cli.launch_pod import (
     racing_mpc,
 )
 from acmpc_tpu_torch.config import load_config
+from acmpc_tpu_torch.geometry.tracks import battery
 from acmpc_tpu_torch.localise.track_map import load_track_map
 from acmpc_tpu_torch.mpc.spatial_mpc import SpatialMPC
 from acmpc_tpu_torch.ops.admm_chunk import admm_chunk
 from acmpc_tpu_torch.ops.tridiag import tridiag_solve
 from acmpc_tpu_torch.ops.tridiag_sharded import tridiag_solve_sharded
-from acmpc_tpu_torch.parallel.mesh import make_mesh, rank_device
+from acmpc_tpu_torch.parallel.mesh import (
+    make_mesh,
+    rank_device,
+    scenario_sharding,
+    sharded_get_control,
+)
 from acmpc_tpu_torch.parallel.multihost import (
     grid_sharding,
     initialize_distributed,
@@ -77,6 +88,8 @@ SPIKE_N = 43940
 SPIKE_REPS, COLLECTIVE_REPS = 20, 200
 # seconds a launch may take, the ranks' start and every case
 RANK_TIMEOUT = 600
+# the sub-mesh case's scenarios
+SUBMESH_WINDOWS = ("curve", "chicane")
 
 
 def profile_path(mpc: SpatialMPC, name: str):
@@ -218,7 +231,30 @@ def case_profiles(device, out: dict) -> dict:
     return info
 
 
-CASES = {"sweep": case_sweep, "profiles": case_profiles}
+def case_submesh(device, out: dict) -> dict:
+    mesh = make_mesh(1, device=device)
+    mpc = racing_mpc(device, rti=None)
+    windows = battery(mpc.horizon)
+    refs = torch.as_tensor(np.stack([windows[k] for k in SUBMESH_WINDOWS]), device=device)
+    rows = scenario_sharding(mesh).local(refs)
+    info = {"rank": mesh.global_rank, "is_member": mesh.is_member, "rows": len(rows)}
+    if mesh.is_member:
+        admm_chunk.launches.clear()
+        states, fleet = sharded_get_control(mpc, mesh)(mpc.initial_state(len(rows)), rows)
+        info["launches"] = dict(admm_chunk.launches)
+        info["n_solved"] = int(fleet["n_solved"])
+        out["projected_control"] = states.projected_control.cpu().numpy()
+        batched, _ = mpc.batched_get_control(mpc.initial_state(len(refs)), refs)
+        out["batched"] = batched.projected_control.cpu().numpy()
+    else:
+        try:
+            mesh.psum(torch.zeros((), device=device))
+        except RuntimeError as err:
+            info["error"] = str(err)
+    return info
+
+
+CASES = {"sweep": case_sweep, "profiles": case_profiles, "submesh": case_submesh}
 
 
 def rank_main(argv) -> None:

@@ -18,6 +18,7 @@ import torch
 
 from acmpc_tpu_torch.dynamics.spatial_bicycle import SpatialBicycleModel, linearise
 from acmpc_tpu_torch.geometry.path import ReferencePath
+from acmpc_tpu_torch.qp.admm import ADMMConfig, QPSolution, solve_box_qp
 
 _INF = 1e30
 NX = 3
@@ -141,3 +142,24 @@ def control_qp_sizes(horizon: int) -> tuple[int, int]:
     n = horizon - 1
     n_var = NX * (n + 1) + NU * n
     return n_var, NX * (n + 1) + n_var
+
+
+def solve_control_qp(
+    path: ReferencePath,
+    spatial_state: torch.Tensor,
+    model: SpatialBicycleModel,
+    step_cost,
+    r_term,
+    final_cost,
+    cfg: ADMMConfig = ADMMConfig(),
+    x0: torch.Tensor | None = None,
+    y0: torch.Tensor | None = None,
+) -> QPSolution:
+    """Assemble and solve. ``x0``/``y0`` warm-start the ADMM iterates, as
+    OSQP keeps its iterates across ``problem.update()`` calls. With one
+    leading scenario axis on ``path`` and ``spatial_state``, each lane is
+    solved as it would be alone (``solve_box_qp`` over the axis)."""
+    P, q, A, l, u = assemble_control_qp(
+        path, spatial_state, model, step_cost, r_term, final_cost
+    )
+    return solve_box_qp(P, q, A, l, u, cfg, x0=x0, y0=y0)

@@ -136,18 +136,24 @@ def shift_warm_start(state: MPCState, k, horizon: int) -> MPCState:
 
 class SpatialMPC:
     """MPC for one (config, model) on one device: ``get_control`` solves
-    one scenario, ``batched_get_control_fused`` a batch."""
+    one scenario; ``batched_get_control`` a batch, each scenario as it
+    would be alone; ``batched_get_control_fused`` a batch on the fused,
+    fixed-rho engine. ``dtype`` is float32: the port is fp32 throughout
+    (its solver chases 1e-3 residuals on fp32 KKT inverses)."""
 
     def __init__(
         self,
         config: MPCConfig,
         model: SpatialBicycleModel,
         device: torch.device | str | None = None,
+        dtype: torch.dtype = torch.float32,
     ):
+        if dtype != torch.float32:
+            raise ValueError(f"the port runs the MPC in float32 throughout, not {dtype}")
         self.config = config
         self.model = model
         self.device = resolve_device(device)
-        self.dtype = torch.float32
+        self.dtype = dtype
         # fixed rho and a shorter Ruiz: the warm-started MPC problem family
         # converges without adaptation
         self.admm = ADMMConfig(
@@ -160,6 +166,10 @@ class SpatialMPC:
     @property
     def horizon(self) -> int:
         return self.config.horizon
+
+    @property
+    def delta_max(self) -> float:
+        return self.model.delta_max
 
     def _tensor(self, value, dtype=None) -> torch.Tensor:
         if isinstance(value, np.ndarray) and not value.flags.writeable:
@@ -301,6 +311,43 @@ class SpatialMPC:
         control_sol = solve_box_qp(*qp, self.admm, x0=state.qp_x, y0=state.qp_y)
         return self._extract(state, path, speed_sol, control_sol)
 
+    def batched_get_control(
+        self,
+        states: MPCState,
+        refs,
+        v_max_runtime=None,
+        is_localised=False,
+        offset=0.0,
+    ) -> tuple[MPCState, MPCDiagnostics]:
+        """B scenarios at once, each as ``get_control`` solves it alone:
+        the counterpart of ``jit(vmap(get_control))``. ``states`` and
+        ``refs`` (B, H, 3) carry a leading scenario axis; the other
+        arguments are (B,) or one value for every scenario. The control
+        QPs go through ``solve_box_qp`` over the scenario axis (one chunk
+        launch for every scenario, each with its own iteration count and
+        status; scenarios that are done skip the chunk)."""
+        refs = self._tensor(refs)
+        B = refs.shape[0]
+
+        def lanes(value, dtype):
+            # a Python number is filled on the device: copying it from
+            # pageable host memory would wait for the stream to drain
+            if isinstance(value, torch.Tensor):
+                return torch.broadcast_to(value.to(self.device, dtype), (B,))
+            return torch.full((B,), value, dtype=dtype, device=self.device)
+
+        if v_max_runtime is None:
+            v_max_runtime = self.config.constraints.v_max
+        path, speed_sol, qp = self._prepare(
+            states,
+            refs,
+            lanes(v_max_runtime, self.dtype),
+            lanes(is_localised, torch.bool),
+            lanes(offset, self.dtype),
+        )
+        control_sol = solve_box_qp(*qp, self.admm, x0=states.qp_x, y0=states.qp_y)
+        return self._extract(states, path, speed_sol, control_sol)
+
     def batched_get_control_fused(
         self, states: MPCState, refs, v_max=None, is_localised=None
     ) -> tuple[MPCState, MPCDiagnostics]:
@@ -386,6 +433,7 @@ def build_mpc(
     control_config: dict,
     vehicle,
     device: torch.device | str | None = None,
+    dtype: torch.dtype = torch.float32,
 ) -> SpatialMPC:
     """An MPC from a raw control-config dict and VehicleParams."""
     cfg = MPCConfig.from_config(control_config)
@@ -394,4 +442,4 @@ def build_mpc(
         min_velocity=cfg.constraints.v_min,
         max_velocity=cfg.constraints.v_max,
     )
-    return SpatialMPC(cfg, model, device)
+    return SpatialMPC(cfg, model, device, dtype)

@@ -77,6 +77,16 @@ SPLIT_STAGES = 4
 SPLIT_STAGE_BYTES = 8192
 
 
+def _products(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, r, c) x (B, c) -> (B, r). On the CPU one product per scenario,
+    each as a batch of one computes it: a batched matrix-vector product
+    there rounds otherwise than a single one, and a scenario of a batch
+    is held bit for bit against the same scenario solved alone."""
+    if M.device.type == "cpu" and len(M) > 1:
+        return torch.cat([_products(M[b : b + 1], v[b : b + 1]) for b in range(len(M))])
+    return (M @ v[..., None])[..., 0]
+
+
 def admm_chunk_reference(W, A, c0, rho, l, u, x, z, y, n_iters, alpha, active=None):
     """Plain PyTorch version of the chunk, the same six lines per
     iteration as the kernels. Used for CPU tensors and as the kernels'
@@ -85,8 +95,8 @@ def admm_chunk_reference(W, A, c0, rho, l, u, x, z, y, n_iters, alpha, active=No
     x_in, z_in, y_in = x, z, y
     for _ in range(n_iters):
         stacked = torch.cat([x, rho * z - y], dim=-1)
-        xt = (W @ stacked[..., None])[..., 0] + c0
-        zt = (A @ xt[..., None])[..., 0]
+        xt = _products(W, stacked) + c0
+        zt = _products(A, xt)
         x_new = alpha * xt + (1.0 - alpha) * x
         z_relax = alpha * zt + (1.0 - alpha) * z
         z_new = torch.clamp(z_relax + y * inv_rho, l, u)

@@ -18,12 +18,19 @@ rank: its collectives return their input. The backend is the process
 group's (``parallel/multihost.py`` chooses it). Over gloo a collective
 on a CUDA tensor is staged through the host (gloo moves host memory);
 the tensors it moves here are a few scalars, or one halo element a side.
+
+``make_mesh(n)`` with n below the world size is a sub-mesh over ranks
+0..n-1, as JAX's takes the first n devices. Every rank makes it (a
+process group is made by every rank of the world); the ranks outside
+it get a mesh that does not hold them (``is_member`` False): they hold
+no rows, and their collectives raise.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import datetime
 import itertools
 import math
 
@@ -32,6 +39,9 @@ import torch.distributed as dist
 
 from acmpc_tpu_torch.device import resolve_device
 from acmpc_tpu_torch.mpc.spatial_mpc import MPCState, SpatialMPC
+
+# how long a rank waits on its peers: the rendezvous and every collective
+DEFAULT_TIMEOUT = datetime.timedelta(seconds=300)
 
 
 def rank_device(device=None) -> torch.device:
@@ -45,39 +55,52 @@ def rank_device(device=None) -> torch.device:
 
 class Mesh:
     """A row-major grid of ranks with named axes, over every rank of the
-    default process group (or over one process with no group)."""
+    default process group (or over one process with no group), or over
+    the global ranks ``ranks`` in that order: a sub-mesh, which every
+    rank of the world must make, members and outsiders alike. Every
+    group it makes waits DEFAULT_TIMEOUT on a missing peer."""
 
-    def __init__(self, shape: dict[str, int], device=None):
+    def __init__(self, shape: dict[str, int], device=None, ranks=None):
         self.shape = dict(shape)
         self.axis_names = tuple(self.shape)
         self.size = math.prod(self.shape.values())
         self.device = rank_device(device)
         if dist.is_available() and dist.is_initialized():
             world = dist.get_world_size()
-            if world != self.size:
+            self._ranks = list(range(world) if ranks is None else ranks)
+            distinct = set(self._ranks)
+            fits = distinct <= set(range(world))
+            if not (len(self._ranks) == len(distinct) == self.size and fits):
                 raise ValueError(
-                    f"a mesh of shape {self.shape} needs {self.size} ranks; "
-                    f"the process group has {world}"
+                    f"a mesh of shape {self.shape} needs {self.size} of the process "
+                    f"group's {world} ranks; got {self._ranks}"
                 )
-            self.rank = dist.get_rank()
+            self.global_rank = dist.get_rank()
             self.backend = dist.get_backend()
-        elif self.size == 1:
-            self.rank, self.backend = 0, None
+        elif self.size == 1 and (ranks is None or list(ranks) == [0]):
+            self._ranks, self.global_rank, self.backend = [0], 0, None
         else:
             raise RuntimeError(
                 f"a mesh of {self.size} ranks needs torch.distributed; call "
                 "parallel.multihost.initialize_distributed first"
             )
+        self.is_member = self.global_rank in self._ranks
+        # this rank's position in the mesh; None outside it
+        self.rank = self._ranks.index(self.global_rank) if self.is_member else None
         strides, acc = {}, 1
         for name in reversed(self.axis_names):
             strides[name] = acc
             acc *= self.shape[name]
         self._strides = strides
-        self.coords = {n: (self.rank // strides[n]) % self.shape[n] for n in self.axis_names}
+        self.coords = (
+            {n: (self.rank // strides[n]) % self.shape[n] for n in self.axis_names}
+            if self.is_member
+            else None
+        )
         # collectives this rank took part in, by kind, and the elements it sent
         self.calls: collections.Counter = collections.Counter()
         self.elements: collections.Counter = collections.Counter()
-        self._groups = self._make_groups() if self.backend is not None else {}
+        self._groups = self._make_groups(ranks is not None) if self.backend is not None else {}
 
     def __repr__(self) -> str:
         return (
@@ -98,9 +121,18 @@ class Mesh:
     def axis_size(self, axis=None) -> int:
         return math.prod(self.shape[a] for a in self._axes(axis))
 
+    def _member(self) -> None:
+        """Raise on a rank this mesh does not hold."""
+        if not self.is_member:
+            raise RuntimeError(
+                f"rank {self.global_rank} is not in this mesh of {self.size} ranks "
+                f"{self._ranks}: it holds no rows and takes part in no collective"
+            )
+
     def axis_index(self, axis=None) -> int:
         """This rank's row-major position along ``axis`` (a name, a tuple
         of names, or None for all axes)."""
+        self._member()
         idx = 0
         for a in self._axes(axis):
             idx = idx * self.shape[a] + self.coords[a]
@@ -113,17 +145,17 @@ class Mesh:
         for a in reversed(axes):
             coords[a] = index % self.shape[a]
             index //= self.shape[a]
-        return sum(coords[a] * self._strides[a] for a in self.axis_names)
+        return self._ranks[sum(coords[a] * self._strides[a] for a in self.axis_names)]
 
-    def _make_groups(self) -> dict:
+    def _make_groups(self, sub_mesh: bool) -> dict:
         """One process group per set of axes that holds this rank. Every
-        rank creates every group, in the same order, as
+        rank of the world creates every group, in the same order, as
         ``dist.new_group`` requires; the set of all axes is the default
-        group."""
+        group, or for a sub-mesh a group of its own."""
         groups = {}
         for k in range(1, len(self.axis_names) + 1):
             for axes in itertools.combinations(self.axis_names, k):
-                if k == len(self.axis_names):
+                if k == len(self.axis_names) and not sub_mesh:
                     groups[axes] = None  # the default group: every rank
                     continue
                 others = [a for a in self.axis_names if a not in axes]
@@ -131,9 +163,10 @@ class Mesh:
                     ranks = []
                     for pos in itertools.product(*(range(self.shape[a]) for a in axes)):
                         c = dict(zip(others, fixed)) | dict(zip(axes, pos))
-                        ranks.append(sum(c[a] * self._strides[a] for a in self.axis_names))
-                    group = dist.new_group(sorted(ranks))
-                    if all(self.coords[a] == f for a, f in zip(others, fixed)):
+                        at = sum(c[a] * self._strides[a] for a in self.axis_names)
+                        ranks.append(self._ranks[at])
+                    group = dist.new_group(sorted(ranks), timeout=DEFAULT_TIMEOUT)
+                    if self.is_member and all(self.coords[a] == f for a, f in zip(others, fixed)):
                         groups[axes] = group
         return groups
 
@@ -149,6 +182,7 @@ class Mesh:
         return x.contiguous().clone()
 
     def _reduce(self, x, op, axis, kind: str) -> torch.Tensor:
+        self._member()
         axes = self._axes(axis)
         if self.backend is None:
             return torch.as_tensor(x, device=self.device)
@@ -173,6 +207,7 @@ class Mesh:
     def all_gather(self, x, axis=None) -> torch.Tensor:
         """Every rank's ``x`` along ``axis``, stacked in a new leading dim
         in axis order, on every rank."""
+        self._member()
         axes = self._axes(axis)
         if self.backend is None:
             return torch.as_tensor(x, device=self.device)[None]
@@ -187,6 +222,7 @@ class Mesh:
         """Send ``x`` to the neighbour ``step`` along the axis and return
         what the one ``-step`` away sent; ``fill`` where there is none
         (``ppermute`` with the pairs (i, i + step))."""
+        self._member()
         axes = self._axes(axis)
         idx, size = self.axis_index(axes), self.axis_size(axes)
         out = torch.full_like(x, fill)
@@ -219,11 +255,16 @@ class Mesh:
 
 
 def make_mesh(n_devices: int | None = None, axis_name: str = "dp", device=None) -> Mesh:
-    """1-D scenario mesh over every rank (``n_devices``, when given, must
-    be their number): one rank per device."""
+    """1-D scenario mesh over the first ``n_devices`` ranks (every rank
+    by default): one rank per device. Below the world size it is a
+    sub-mesh, which every rank must make; the ranks at ``n_devices`` and
+    above get a mesh with ``is_member`` False. More ranks than the world
+    has raise."""
     world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
     n = world if n_devices is None else n_devices
-    return Mesh({axis_name: n}, device)
+    if not 1 <= n <= world:
+        raise ValueError(f"make_mesh({n}): the world has {world} rank(s)")
+    return Mesh({axis_name: n}, device, ranks=None if n == world else range(n))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -235,9 +276,12 @@ class ScenarioSharding:
     axes: tuple[str, ...]
 
     def rows(self, n: int) -> slice:
+        """This rank's rows of ``n``; none outside a sub-mesh."""
         parts = self.mesh.axis_size(self.axes)
         if n % parts:
             raise ValueError(f"{n} scenarios do not split over {parts} ranks")
+        if not self.mesh.is_member:
+            return slice(0, 0)
         per = n // parts
         i = self.mesh.axis_index(self.axes)
         return slice(i * per, (i + 1) * per)
@@ -264,13 +308,14 @@ def sharded_get_control(mpc: SpatialMPC, mesh: Mesh, axis_name: str = "dp"):
 
     Returns ``step(states, refs) -> (states', fleet)``: each rank passes
     its own rows and gets its own rows back, through
-    ``batched_get_control_fused``; ``fleet`` holds the same reduced
+    ``batched_get_control`` (JAX's local step vmaps ``get_control``);
+    ``fleet`` holds the same reduced
     scalars on every rank (``n_solved`` summed, ``worst_r_prim`` and
     ``worst_infeasibility_counter`` maxed over the axis).
     """
 
     def step(states: MPCState, refs):
-        new_states, diags = mpc.batched_get_control_fused(states, refs)
+        new_states, diags = mpc.batched_get_control(states, refs)
         fleet = {
             "n_solved": mesh.psum(new_states.solved.sum(), axis_name),
             "worst_r_prim": mesh.pmax(diags.r_prim.max(), axis_name),

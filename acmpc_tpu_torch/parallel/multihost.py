@@ -38,10 +38,8 @@ import torch
 import torch.distributed as dist
 
 from acmpc_tpu_torch.device import resolve_device
-from acmpc_tpu_torch.parallel.mesh import Mesh, ScenarioSharding, rank_device
+from acmpc_tpu_torch.parallel.mesh import DEFAULT_TIMEOUT, Mesh, ScenarioSharding, rank_device
 
-# how long a rank waits on its peers: the rendezvous and every collective
-DEFAULT_TIMEOUT = datetime.timedelta(seconds=300)
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 _HOST_KEY = "acmpc_host/"
 

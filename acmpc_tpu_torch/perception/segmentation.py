@@ -71,7 +71,7 @@ class TrackSegmenter:
         self._height = cfg.image_height
         self._dtype = PRECISION[cfg.precision]
         if variables is None:
-            variables = load_variables(cfg.model_path)
+            variables = self.load_variables(cfg.model_path)
         model = FPNResNet18(num_classes=10)
         model.load_state_dict(state_dict_from_flax(variables), strict=True)
         # floating parameters cast from the stored dtype to the compute
@@ -81,6 +81,10 @@ class TrackSegmenter:
             .eval()
             .requires_grad_(False)
         )
+
+    def load_variables(self, path: str | pathlib.Path) -> dict:
+        """The checkpoint's variables tree (:func:`load_variables`)."""
+        return load_variables(path)
 
     @property
     def dtype(self) -> torch.dtype:

@@ -14,6 +14,14 @@ on the card, its plain PyTorch version on the CPU), also for a single
 scenario. The convergence loop runs on the host: one device-to-host read
 of the ``done`` flag per chunk.
 
+``solve_box_qp`` also takes a leading scenario axis, the counterpart of
+``jax.vmap(solve_box_qp)`` and of the merge rule that sends the vmapped
+solve to the fused kernel: one chunk launch covers every lane, and each
+lane keeps the semantics it has alone (its own scaling, iteration count,
+status, residuals, infeasibility certificate and adaptive rho). Lanes
+that are done skip the chunk's iterations in the kernel and keep their
+iterates.
+
 fp32 throughout, with TF32 off (set when the package is imported): TF32
 products inject ~1e-3 relative error into the KKT system, which is fatal
 for a solver chasing 1e-3 residuals.
@@ -157,6 +165,79 @@ def _build_operator(K_inv, As, qs, sigma):
     return W.contiguous(), c0
 
 
+def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Batched matrix-vector product (B, r, c) x (B, c) -> (B, r). On the
+    CPU one product per lane, as :func:`_solve_one` computes it (see
+    ``ops.admm_chunk._products``)."""
+    if M.device.type == "cpu" and len(M):
+        return torch.stack([m @ w for m, w in zip(M, v)])
+    return (M @ v[..., None])[..., 0]
+
+
+def _lanewise(fn, *lanes):
+    """``fn`` over the leading lane axis of every argument: on the CPU
+    lane by lane, as :func:`_solve_one` computes it, stacked; elsewhere
+    one batched call. ``fn`` returns a tensor or a tuple of them."""
+    if lanes[0].device.type != "cpu" or not len(lanes[0]):
+        return fn(*lanes)
+    outs = [fn(*lane) for lane in zip(*lanes)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(parts) for parts in zip(*outs))
+    return torch.stack(outs)
+
+
+def _lane_residuals(cfg, Ps, As, qs, c, d, e, x, y, z):
+    """Unscaled residuals, convergence flags and the adaptive-rho ratio of
+    B lanes (c (B,), the other vectors (B, .)), each reduced over its own
+    lane only. Returns (r_prim, r_dual, converged, near, ratio), (B,)
+    each."""
+    Ax_u = _mv(As, x) / e
+    z_u = z / e
+    r_prim = _inf_norm(Ax_u - z_u)
+    Px_u = (_mv(Ps, x) / d) / c[:, None]
+    Aty_u = (_mv(As.transpose(-1, -2), y) / d) / c[:, None]
+    q_u = (qs / d) / c[:, None]
+    r_dual = _inf_norm(Px_u + Aty_u + q_u)
+    prim_scale = torch.maximum(_inf_norm(Ax_u), _inf_norm(z_u))
+    dual_scale = torch.maximum(
+        torch.maximum(_inf_norm(Px_u), _inf_norm(Aty_u)), _inf_norm(q_u)
+    )
+    eps_prim = cfg.eps_abs + cfg.eps_rel * prim_scale
+    eps_dual = cfg.eps_abs + cfg.eps_rel * dual_scale
+    # divergence guard (see solve_box_qp's residuals)
+    sane = torch.isfinite(r_prim) & torch.isfinite(r_dual) & (_inf_norm(x) < 1e12)
+    converged = (r_prim <= eps_prim) & (r_dual <= eps_dual) & sane
+    near = (
+        (r_prim <= cfg.inaccurate_factor * eps_prim)
+        & (r_dual <= cfg.inaccurate_factor * eps_dual)
+        & sane
+    )
+    prim_n = r_prim / torch.clamp(prim_scale, min=1e-10)
+    dual_n = r_dual / torch.clamp(dual_scale, min=1e-10)
+    ratio = torch.sqrt(prim_n / torch.clamp(dual_n, min=1e-10))
+    return r_prim, r_dual, converged, near, ratio
+
+
+def _lane_certificate(cfg, As, ls, us, c, d, e, dy):
+    """OSQP's primal infeasibility test on each lane's dual-ascent
+    direction ``dy`` (B, m), in unscaled quantities; (B,) bool."""
+    dy_u_norm = _inf_norm(e * dy) / c
+    at_dy = _inf_norm(_mv(As.transpose(-1, -2), dy) / d) / c
+    support = (
+        torch.sum(us * torch.clamp(dy, min=0.0), dim=-1)
+        + torch.sum(ls * torch.clamp(dy, max=0.0), dim=-1)
+    ) / c
+    eps = cfg.eps_prim_inf * torch.clamp(dy_u_norm, min=1e-30)
+    return (dy_u_norm > 1e-12) & (at_dy <= eps) & (support <= -eps)
+
+
+def _status(converged, near, prim_inf=None):
+    s = torch.where(near, STATUS_SOLVED_INACCURATE, STATUS_MAX_ITER)
+    if prim_inf is not None:
+        s = torch.where(prim_inf, STATUS_PRIMAL_INFEASIBLE, s)
+    return torch.where(converged, STATUS_SOLVED, s).to(torch.int32)
+
+
 def solve_box_qp(
     P: torch.Tensor,
     q: torch.Tensor,
@@ -167,11 +248,20 @@ def solve_box_qp(
     x0: torch.Tensor | None = None,
     y0: torch.Tensor | None = None,
 ) -> QPSolution:
-    """Solve one box QP on the device of its inputs.
+    """Solve one box QP, or B of them, on the device of the inputs.
 
-    P: (n, n) dense symmetric; q: (n,); A: (m, n); l, u: (m,).
+    P: (n, n) dense symmetric; q: (n,); A: (m, n); l, u: (m,); x0 (n,)
+    and y0 (m,). Or each with a leading scenario axis B: P (B, n, n),
+    q (B, n), ..., and every field of the solution (B, ...); lane b is
+    the solve of scenario b alone (see :func:`_solve_lanes`).
     Use +/-inf (or +/-1e30) for loose bounds.
     """
+    solve = _solve_lanes if q.dim() == 2 else _solve_one
+    return solve(P, q, A, l, u, cfg, x0, y0)[0]
+
+
+def _solve_one(P, q, A, l, u, cfg, x0, y0) -> tuple[QPSolution, torch.Tensor]:
+    """One QP; returns the solution and the rho it ends on."""
     dtype = q.dtype
     n = q.shape[-1]
     m = l.shape[-1]
@@ -234,12 +324,6 @@ def solve_box_qp(
         rho_vec = _rho_vector(rho, ls, us)
         return rho_vec, _build_operator(_factor(Ps, As, rho_vec, sigma), As, qs, sigma)
 
-    def status_of(converged, near, prim_inf=None):
-        s = torch.where(near, STATUS_SOLVED_INACCURATE, STATUS_MAX_ITER)
-        if prim_inf is not None:
-            s = torch.where(prim_inf, STATUS_PRIMAL_INFEASIBLE, s)
-        return torch.where(converged, STATUS_SOLVED, s).to(torch.int32)
-
     rho = torch.tensor(cfg.rho, dtype=dtype, device=q.device)
     rho_vec, op = operator(rho)
 
@@ -250,13 +334,13 @@ def solve_box_qp(
             x=x * d,
             y=y * e / c,
             z=z / e,
-            status=status_of(converged, near),
+            status=_status(converged, near),
             iterations=torch.tensor(
                 cfg.fixed_iterations, dtype=torch.int32, device=q.device
             ),
             r_prim=r_p,
             r_dual=r_d,
-        )
+        ), rho
 
     def primal_infeasibility_certificate(dy):
         """OSQP's test on a dual-ascent direction delta_y (Stellato et al.
@@ -280,7 +364,7 @@ def solve_box_qp(
         it += cfg.check_every
         r_p, r_d, converged, near, ratio = residuals(x, y, z)
         prim_inf = primal_infeasibility_certificate(y - y_before) & ~converged
-        status = status_of(converged, near, prim_inf)
+        status = _status(converged, near, prim_inf)
         done = bool(converged | prim_inf)  # host read, once per chunk
         if cfg.adaptive_rho and not done:
             tol = cfg.adaptive_rho_tol
@@ -296,4 +380,122 @@ def solve_box_qp(
         iterations=torch.tensor(it, dtype=torch.int32, device=q.device),
         r_prim=r_p,
         r_dual=r_d,
+    ), rho
+
+
+def _solve_lanes(P, q, A, l, u, cfg, x0, y0) -> tuple[QPSolution, torch.Tensor]:
+    """B QPs along the leading axis, each lane as :func:`_solve_one`
+    solves it alone; returns the solution and the rho (B,) each lane ends
+    on.
+
+    Scaling, factorisation and the residual checks are batched tensor
+    code reduced over each lane's own axis. Every chunk is one
+    ``admm_chunk`` call over all lanes: once a lane is done it passes
+    ``active = ~done``, so its iterates, iteration count, status and
+    residuals stay those of its last chunk. One host read a chunk (is any
+    lane still going, is any done, does any lane's rho leave the band);
+    a second, the lanes to refactor, only when some lane's does. Those
+    lanes alone are refactored and written back into the batch's
+    operator: a lane's rho never moves another lane's.
+    """
+    dtype, device = q.dtype, q.device
+    B, n = q.shape
+    m = l.shape[-1]
+
+    l = torch.clamp(l, -_INF, _INF)
+    u = torch.clamp(u, -_INF, _INF)
+
+    Ps, qs, As, c, d, e = _ruiz_equilibrate(P, q, A, cfg.scaling_iters)
+    ls = e * l
+    us = e * u
+    As = As.contiguous()
+    sigma = cfg.sigma
+
+    x = torch.zeros(B, n, dtype=dtype, device=device) if x0 is None else x0 / d
+    y = (
+        torch.zeros(B, m, dtype=dtype, device=device)
+        if y0 is None
+        else c[:, None] * y0 / e
     )
+    z = torch.clamp(_mv(As, x), ls, us)
+
+    def operator(Ps, As, qs, rho_vec):
+        return _build_operator(_factor(Ps, As, rho_vec, sigma), As, qs, sigma)
+
+    rho = torch.full((B,), cfg.rho, dtype=dtype, device=device)
+    rho_vec = _rho_vector(rho[:, None], ls, us)
+    W, c0 = _lanewise(operator, Ps, As, qs, rho_vec)
+
+    def chunk(x, z, y, n_iters, active=None):
+        return admm_chunk(
+            W, As, c0, rho_vec, ls, us, x, z, y,
+            n_iters=n_iters, alpha=cfg.alpha, active=active,
+        )
+
+    def residuals(x, y, z):
+        return _lane_residuals(cfg, Ps, As, qs, c, d, e, x, y, z)
+
+    def solution(x, y, z, status, iterations, r_p, r_d):
+        return QPSolution(
+            x=x * d,
+            y=y * e / c[:, None],
+            z=z / e,
+            status=status,
+            iterations=iterations,
+            r_prim=r_p,
+            r_dual=r_d,
+        )
+
+    def full(value, dtype):
+        return torch.full((B,), value, dtype=dtype, device=device)
+
+    if cfg.fixed_iterations is not None:
+        x, z, y = chunk(x, z, y, cfg.fixed_iterations)
+        r_p, r_d, converged, near, _ = residuals(x, y, z)
+        iterations = full(cfg.fixed_iterations, torch.int32)
+        return solution(x, y, z, _status(converged, near), iterations, r_p, r_d), rho
+
+    it = 0
+    done = full(False, torch.bool)
+    any_done = False
+    r_p = full(float("inf"), dtype)
+    r_d = full(float("inf"), dtype)
+    status = full(STATUS_MAX_ITER, torch.int32)
+    iterations = full(0, torch.int32)
+    while it < cfg.max_iter:
+        running = ~done
+        x_new, z_new, y_new = chunk(
+            x, z, y, cfg.check_every, active=running if any_done else None
+        )
+        it += cfg.check_every
+        r_pn, r_dn, converged, near, ratio = residuals(x_new, y_new, z_new)
+        prim_inf = (
+            _lane_certificate(cfg, As, ls, us, c, d, e, y_new - y) & ~converged
+        )
+        # lanes that were done before this chunk keep what they had (the
+        # kernel passed their iterates through)
+        status = torch.where(running, _status(converged, near, prim_inf), status)
+        r_p = torch.where(running, r_pn, r_p)
+        r_d = torch.where(running, r_dn, r_d)
+        iterations = torch.where(running, iterations + cfg.check_every, iterations)
+        x, z, y = x_new, z_new, y_new
+        done = done | converged | prim_inf
+        flags = [done.all(), done.any()]
+        if cfg.adaptive_rho:
+            tol = cfg.adaptive_rho_tol
+            refactor = ~done & ((ratio > tol) | (ratio < 1.0 / tol))
+            flags.append(refactor.any())
+        flags = torch.stack(flags).tolist()  # host read, once per chunk
+        if flags[0]:
+            break
+        any_done = flags[1]
+        if cfg.adaptive_rho and flags[2]:
+            lanes = torch.nonzero(refactor)[:, 0]  # the second read
+            rho[lanes] = torch.clamp(rho[lanes] * ratio[lanes], 1e-6, 1e6)
+            rv = _rho_vector(rho[lanes, None], ls[lanes], us[lanes])
+            W_l, c0_l = _lanewise(operator, Ps[lanes], As[lanes], qs[lanes], rv)
+            rho_vec[lanes] = rv
+            W[lanes] = W_l
+            c0[lanes] = c0_l
+
+    return solution(x, y, z, status, iterations, r_p, r_d), rho

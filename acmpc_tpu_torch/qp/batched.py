@@ -26,15 +26,12 @@ from acmpc_tpu_torch.qp.admm import (
     QPSolution,
     _build_operator,
     _factor,
-    _inf_norm,
+    _lane_certificate,
+    _lane_residuals,
+    _mv,
     _rho_vector,
     _ruiz_equilibrate,
 )
-
-
-def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Batched matrix-vector product (B, r, c) x (B, c) -> (B, r)."""
-    return (M @ v[..., None])[..., 0]
 
 
 def solve_box_qp_batched(
@@ -81,40 +78,10 @@ def solve_box_qp_batched(
         )
 
     def residuals(x, y, z):
-        Ax_u = _mv(As, x) / e
-        z_u = z / e
-        r_prim = _inf_norm(Ax_u - z_u)
-        Px_u = (_mv(Ps, x) / d) / c[:, None]
-        Aty_u = (_mv(As.transpose(-1, -2), y) / d) / c[:, None]
-        q_u = (qs / d) / c[:, None]
-        r_dual = _inf_norm(Px_u + Aty_u + q_u)
-        eps_prim = cfg.eps_abs + cfg.eps_rel * torch.maximum(
-            _inf_norm(Ax_u), _inf_norm(z_u)
-        )
-        eps_dual = cfg.eps_abs + cfg.eps_rel * torch.maximum(
-            torch.maximum(_inf_norm(Px_u), _inf_norm(Aty_u)), _inf_norm(q_u)
-        )
-        # divergence guard (see qp/admm.py residuals)
-        sane = (
-            torch.isfinite(r_prim) & torch.isfinite(r_dual) & (_inf_norm(x) < 1e12)
-        )
-        converged = (r_prim <= eps_prim) & (r_dual <= eps_dual) & sane
-        near = (
-            (r_prim <= cfg.inaccurate_factor * eps_prim)
-            & (r_dual <= cfg.inaccurate_factor * eps_dual)
-            & sane
-        )
-        return r_prim, r_dual, converged, near
+        return _lane_residuals(cfg, Ps, As, qs, c, d, e, x, y, z)[:4]
 
     def prim_inf_certificate(dy):
-        dy_u_norm = _inf_norm(e * dy) / c
-        at_dy = _inf_norm(_mv(As.transpose(-1, -2), dy) / d) / c
-        support = (
-            torch.sum(us * torch.clamp(dy, min=0.0), dim=-1)
-            + torch.sum(ls * torch.clamp(dy, max=0.0), dim=-1)
-        ) / c
-        eps = cfg.eps_prim_inf * torch.clamp(dy_u_norm, min=1e-30)
-        return (dy_u_norm > 1e-12) & (at_dy <= eps) & (support <= -eps)
+        return _lane_certificate(cfg, As, ls, us, c, d, e, dy)
 
     def full(value, dtype):
         return torch.full((B,), value, dtype=dtype, device=device)

@@ -238,13 +238,18 @@ def solve_speed_profile(
     v_max_runtime=None,
     localised=False,
     use_end_velocity: bool = True,
+    cfg: ADMMConfig = ADMMConfig(),
+    v0: torch.Tensor | None = None,
 ) -> SpeedProfileSolution:
     """Exact speed-profile solve: v* = min(v_hi, forward a_max-limited
     pass, backward a_min pass), each pass one (min,+) scan.
 
     ``distances``/``kappas`` are (..., N). ``v_max_runtime`` and
     ``localised`` are scalars or one per scenario; a localised scenario
-    takes the flat cap (map speeds already encode curvature).
+    takes the flat cap (map speeds already encode curvature). ``cfg``
+    and ``v0`` are ignored: the scan is exact and iterates nothing. They
+    are taken for the JAX package's signature, which keeps them for API
+    compatibility (:func:`solve_speed_profile_admm` uses a ``cfg``).
     """
     n = kappas.shape[-1]
     if v_max_runtime is None:

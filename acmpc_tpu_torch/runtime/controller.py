@@ -44,21 +44,23 @@ class Controller:
         cfg: AgentConfig,
         clock=None,
         device: torch.device | str | None = None,
+        dtype: torch.dtype = torch.float32,
     ):
         """``clock``: time source used to stamp command sets and to
         compute the elapsed time for temporal command selection. Defaults
         to the wall clock (``time.monotonic``, right against a real-time
         game); a discrete-time simulator passes its own sim clock so the
         selection stays correct however fast or slow the host runs the
-        loop."""
+        loop. ``dtype``: the MPCs' type, float32 (the port is fp32
+        throughout; any other raises)."""
         self._cfg = cfg
         self._clock = clock or time.monotonic
         self.device = resolve_device(device)
         self.mapping_mpc = build_mpc(
-            _control_dict(cfg.mapping_control), cfg.vehicle, self.device
+            _control_dict(cfg.mapping_control), cfg.vehicle, self.device, dtype
         )
         self.racing_mpc = build_mpc(
-            _control_dict(cfg.racing_control), cfg.vehicle, self.device
+            _control_dict(cfg.racing_control), cfg.vehicle, self.device, dtype
         )
         self._centreline_box = Mailbox()
         self._command_box = Mailbox()
@@ -82,7 +84,7 @@ class Controller:
 
     @property
     def delta_max(self) -> float:
-        return self.racing_mpc.model.delta_max
+        return self.racing_mpc.delta_max
 
     @property
     def a_max(self) -> float:

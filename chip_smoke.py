@@ -161,6 +161,24 @@ Phases, each printing one line:
      bounds: PCR at N = 43,940, the SPIKE solve at two ranks, and
      ``spd_inverse`` on the (256, 248, 248) KKT matrices of phase 4's
      inputs beside the Cholesky route (``_factor``) on the same matrices.
+  15. the vmapped control step (``solve_box_qp`` over a scenario axis):
+     (a) phase 4's inputs through ``SpatialMPC.batched_get_control``, one
+     cold and five warm steps, every scenario solved, both cluster
+     variants launched; 8 lanes picked by stride against ``get_control``
+     alone on the card (status and iterations equal, commands within
+     CPU_AGREE_TOL), every lane against ``batched_get_control_fused``
+     (5e-3, ``n_solved`` equal), 8 lanes against the CPU (5e-3); the wall
+     a step; (b) 64 random QPs at n = 248, m = 398 with adaptive rho,
+     each lane against its unbatched solve on the card (status equal, x
+     within 2e-2 of the scale), the lanes that refactored; (c) the mapping
+     control (horizon 100) at B = 8 on the split kernel, every lane
+     against ``get_control``; (d) ``LapSweep.run`` on phase 8's grid
+     against ``run_fused`` (metrics within 5e-3, ``solved`` equal, one
+     cluster launch a step), closed-loop solves/s of both, timed in
+     turns; (e) ``make_mesh(1)`` at two gloo ranks sharing the card
+     (``bench/pod_sweep.py``'s submesh case): rank 0's
+     ``sharded_get_control`` against ``batched_get_control``, rank 1
+     holding no rows and its collective raising.
 Then the kernels line, the card line and, last, the result line. Any
 failure raises and the exit code is not 0. Without a CUDA device it
 exits with code 2 and prints no result.
@@ -268,6 +286,21 @@ GOLDEN_TOL = 5e-3
 # same number of chunks, and differ by fp32 rounding in the kernel, the
 # batched Cholesky and the reductions
 CPU_AGREE_TOL = 2e-3
+# phase 15: lanes of the vmapped step held against get_control alone
+# (picked by stride): the same iterations to the same status, commands
+# within CPU_AGREE_TOL, since the two differ as the card and the CPU do,
+# in the fp32 rounding of the KKT inverse (cuSOLVER's batched Cholesky
+# against its single one, cuBLAS's batched products) and of the kernel's
+# reductions (5 CTAs a scenario at B = 256, 8 at B = 1); 2.3e-4 on an H100
+# (racing) and 1.4e-3 (mapping), the same every run. The fused engine's
+# and the CPU's tolerance (the golden fixture's); the random QPs' batch
+# and their tolerance against single solves (tests/test_torch_admm.py's
+# X_TOL for converged solves whose arithmetic differs in rounding)
+VMAP_LANES = 8
+VMAP_LANE_TOL = CPU_AGREE_TOL
+VMAP_TOL = 5e-3
+VMAP_QPS = 64
+VMAP_QP_TOL = 2e-2
 
 
 def emit(phase: str, payload: dict) -> None:
@@ -310,14 +343,11 @@ def chunk_bound(n: int, m: int, n_iters: int, n_active: int, batch: int, masked:
     return 1e3 * max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations")
 
 
-def random_chunk_inputs(batch: int, n: int, m: int, seed: int, device):
-    """Chunk inputs at the true shapes from random well-posed box QPs:
-    the ADMM operator of P = M M'/n + I/2, A (m, n) with every 17th row an
-    equality, rho 0.1 (1e2 on equalities), so the iterates stay bounded
-    as in a real solve."""
+def random_box_qps(batch: int, n: int, m: int, seed: int, device):
+    """B random well-posed box QPs (P, q, A, l, u) at the true shapes:
+    P = M M'/n + I/2, A (m, n) with every 17th row an equality; and the
+    generator, for more draws."""
     import torch
-
-    from acmpc_tpu_torch.qp.admm import _build_operator, _factor, _rho_vector
 
     g = torch.Generator(device=device).manual_seed(seed)
 
@@ -331,12 +361,23 @@ def random_chunk_inputs(batch: int, n: int, m: int, seed: int, device):
     centre = (A @ randn(batch, n, 1))[..., 0]
     half = 0.5 + torch.rand(batch, m, generator=g, device=device)
     half[:, ::17] = 0.0
-    lo, hi = centre - half, centre + half
+    return (P, q, A, centre - half, centre + half), g
+
+
+def random_chunk_inputs(batch: int, n: int, m: int, seed: int, device):
+    """Chunk inputs at the true shapes from ``random_box_qps``: their
+    ADMM operator at rho 0.1 (1e2 on equalities), so the iterates stay
+    bounded as in a real solve."""
+    import torch
+
+    from acmpc_tpu_torch.qp.admm import _build_operator, _factor, _rho_vector
+
+    (P, q, A, lo, hi), g = random_box_qps(batch, n, m, seed, device)
     rho = _rho_vector(torch.tensor(0.1, device=device), lo, hi)
     W, c0 = _build_operator(_factor(P, A, rho, 1e-5), A, q, 1e-5)
-    x = randn(batch, n, scale=0.1)
+    x = 0.1 * torch.randn(batch, n, generator=g, device=device)
     z = torch.clamp((A @ x[..., None])[..., 0], lo, hi)
-    y = randn(batch, m, scale=0.1)
+    y = 0.1 * torch.randn(batch, m, generator=g, device=device)
     return W, A.contiguous(), c0, rho, lo, hi, x, z, y
 
 
@@ -1855,14 +1896,303 @@ def phase_parallel() -> dict:
     return info
 
 
+def _lane(tree, i):
+    """Lane ``i`` of a dataclass of batched tensors."""
+    return type(tree)(*(getattr(tree, f.name)[i] for f in dataclasses.fields(tree)))
+
+
+def _lanes_against_single(mpc, before, after, diags, refs, lanes) -> dict:
+    """Lanes of one ``batched_get_control`` step (``before`` -> ``after``)
+    against ``get_control`` on each lane alone from the same state: the
+    largest command difference, and the lanes whose status or iteration
+    count differ."""
+    err, differ = np.zeros(2), []
+    for i in lanes:
+        one, one_diags = mpc.get_control(_lane(before, i), refs[i])
+        diff = (one.projected_control - after.projected_control[i]).abs().amax(dim=-1)
+        err = np.maximum(err, diff.cpu().numpy())
+        if (int(one_diags.control_status), int(one_diags.control_iterations)) != (
+            int(diags.control_status[i]), int(diags.control_iterations[i])
+        ):
+            differ.append(int(i))
+    return {
+        "max_abs_err": float(err.max()),
+        "max_abs_err_speed": float(err[0]),
+        "max_abs_err_steering": float(err[1]),
+        "command_scale": float(after.projected_control[lanes].abs().amax()),
+        "lanes_differing": differ,
+    }
+
+
+def _batched_steps(mpc, refs, n_steps: int):
+    """``n_steps`` of ``batched_get_control`` from zero states, each timed
+    and ended by a synchronise: (states before each step and after the
+    last, diagnostics, walls in s)."""
+    import torch
+
+    states, diags, walls = [mpc.initial_state(refs.shape[0])], [], []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, d = mpc.batched_get_control(states[-1], refs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        states.append(new)
+        diags.append(d)
+    return states, diags, walls
+
+
+def _check_steps(label: str, states, batch: int, horizon: int):
+    for i, s in enumerate(states[1:]):
+        if not bool(s.solved.all()):
+            raise RuntimeError(f"{label} step {i}: {int((~s.solved).sum())} of {batch} unsolved")
+        if not _finite(s.projected_control) or s.projected_control.shape != (batch, 2, horizon - 1):
+            raise RuntimeError(f"{label} step {i}: commands {tuple(s.projected_control.shape)} or not finite")
+
+
+def _vmapped_racing() -> dict:
+    """(a): phase 4's inputs through ``batched_get_control``, cold then
+    five warm steps; lanes against get_control alone, every lane against
+    the fused engine, 8 lanes against the CPU."""
+    import torch
+
+    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER, CLUSTER_ACTIVE
+
+    mpc = make_mpc("monza", DEVICE)
+    refs = torch.as_tensor(difficulty_ramp(HORIZON, BATCH), device=DEVICE)
+    (states, diags, walls), launches = _counted(lambda: _batched_steps(mpc, refs, 6))
+    _check_steps("vmapped racing", states, BATCH, HORIZON)
+    for name in (CLUSTER, CLUSTER_ACTIVE):
+        if launches.get(name, 0) == 0:
+            raise RuntimeError(f"vmapped racing never launched {name}")
+
+    pick = torch.arange(0, BATCH, BATCH // VMAP_LANES)
+    single = {
+        "cold": _lanes_against_single(mpc, states[0], states[1], diags[0], refs, pick),
+        "warm": _lanes_against_single(mpc, states[-2], states[-1], diags[-1], refs, pick),
+    }
+    for k, v in single.items():
+        if v["lanes_differing"] or v["max_abs_err"] > VMAP_LANE_TOL:
+            raise RuntimeError(f"vmapped racing {k}: lanes against get_control alone: {v}")
+
+    fused, fused_err = [mpc.initial_state(BATCH)], 0.0
+    for i in range(6):
+        fused.append(mpc.batched_get_control_fused(fused[-1], refs)[0])
+        fused_err = max(fused_err, float(
+            (fused[-1].projected_control - states[i + 1].projected_control).abs().max()
+        ))
+        if int(fused[-1].solved.sum()) != int(states[i + 1].solved.sum()) or fused_err > VMAP_TOL:
+            raise RuntimeError(f"vmapped racing step {i}: the fused engine differs by {fused_err}")
+
+    cpu_mpc = make_mpc("monza", "cpu")
+    cpu_state, _ = cpu_mpc.batched_get_control(cpu_mpc.initial_state(len(pick)), refs[pick].cpu())
+    cpu_err = float((cpu_state.projected_control - states[1].projected_control[pick].cpu()).abs().max())
+    if not bool(cpu_state.solved.all()) or cpu_err > VMAP_TOL:
+        raise RuntimeError(f"vmapped racing: card and CPU disagree: max abs err {cpu_err}")
+    warm_ms = 1e3 * float(np.median(walls[1:]))
+    return {
+        "config": "monza racing, horizon 50",
+        "batch": BATCH,
+        "launches": launches,
+        "cold_ms": 1e3 * walls[0],
+        "warm_ms_per_step": warm_ms,
+        "warm_step_ms_all": [1e3 * w for w in walls[1:]],
+        "solves_per_s": BATCH / (warm_ms / 1e3),
+        "iterations_cold": [int(diags[0].control_iterations.min()), int(diags[0].control_iterations.max())],
+        "iterations_warm_max": int(diags[-1].control_iterations.max()),
+        "against_single": single,
+        "fused_max_abs_err": fused_err,
+        "cpu_plain_max_abs_err": cpu_err,
+    }
+
+
+def _vmapped_random_qps() -> dict:
+    """(b): B random QPs at n = 248, m = 398 with adaptive rho, each lane
+    against its unbatched solve on the card."""
+    import torch
+
+    from acmpc_tpu_torch.qp.admm import ADMMConfig, _solve_lanes, _solve_one
+
+    cfg = ADMMConfig()
+    qps, _ = random_box_qps(VMAP_QPS, *H50, seed=11, device=DEVICE)
+
+    def solve():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = _solve_lanes(*qps, cfg, None, None)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    ((batch, rho), wall), launches = _counted(solve)
+    t0 = time.perf_counter()
+    singles = [_solve_one(*(t[i] for t in qps), cfg, None, None) for i in range(VMAP_QPS)]
+    torch.cuda.synchronize()
+    single_wall = time.perf_counter() - t0
+    status = torch.stack([s.status for s, _ in singles])
+    if not torch.equal(status, batch.status) or not bool(batch.solved.all()):
+        raise RuntimeError(f"vmapped QPs: statuses {batch.status.tolist()} against {status.tolist()}")
+    x = torch.stack([s.x for s, _ in singles])
+    scale = max(1.0, float(x.abs().max()))
+    err = float((x - batch.x).abs().max())
+    if err > VMAP_QP_TOL * scale:
+        raise RuntimeError(f"vmapped QPs: lanes {err} from single solves")
+    single_rho = torch.stack([r for _, r in singles])
+    single_its = torch.stack([s.iterations for s, _ in singles])
+    if not launches:
+        raise RuntimeError("vmapped QPs launched no chunk kernel")
+    return {
+        "batch": VMAP_QPS,
+        "n": H50[0],
+        "m": H50[1],
+        "lanes_refactored": int((rho != cfg.rho).sum()),
+        "lanes_rho_equal_single": int((rho == single_rho).sum()),
+        "lanes_iterations_equal_single": int((batch.iterations == single_its).sum()),
+        "iterations": [int(batch.iterations.min()), int(batch.iterations.max())],
+        "max_abs_err_vs_single": err,
+        "x_scale": scale,
+        "launches": launches,
+        "wall_ms": 1e3 * wall,
+        "single_solves_wall_ms": 1e3 * single_wall,
+    }
+
+
+def _vmapped_mapping() -> dict:
+    """(c): monza's mapping control (horizon 100) at B = 8 through
+    ``batched_get_control``, on the split kernel; lanes against
+    get_control alone."""
+    import torch
+
+    from acmpc_tpu_torch.ops.admm_chunk import SPLIT
+
+    mpc = make_mpc("monza", DEVICE, mode="mapping")
+    horizon = mpc.config.horizon
+    refs = torch.as_tensor(difficulty_ramp(horizon, BATCH)[:MAPPING_BATCH], device=DEVICE)
+    (states, diags, walls), launches = _counted(lambda: _batched_steps(mpc, refs, 6))
+    _check_steps("vmapped mapping", states, MAPPING_BATCH, horizon)
+    if launches.get(SPLIT, 0) == 0 or any(k.startswith("admm_chunk_cluster") for k in launches):
+        raise RuntimeError(f"vmapped mapping: launches {launches}, not the split kernel's")
+    lanes = torch.arange(MAPPING_BATCH)
+    single = {
+        "cold": _lanes_against_single(mpc, states[0], states[1], diags[0], refs, lanes),
+        "warm": _lanes_against_single(mpc, states[-2], states[-1], diags[-1], refs, lanes),
+    }
+    for k, v in single.items():
+        if v["lanes_differing"] or v["max_abs_err"] > VMAP_LANE_TOL:
+            raise RuntimeError(f"vmapped mapping {k}: lanes against get_control alone: {v}")
+    return {
+        "config": f"monza mapping, horizon {horizon}",
+        "batch": MAPPING_BATCH,
+        "launches": launches,
+        "cold_ms": 1e3 * walls[0],
+        "warm_ms_per_step": 1e3 * float(np.median(walls[1:])),
+        "against_single": single,
+    }
+
+
+def _vmapped_lap_sweep() -> dict:
+    """(d): ``LapSweep.run`` on phase 8's grid against ``run_fused``."""
+    import torch
+
+    from acmpc_tpu_torch.bench.full_lap import HALF_WIDTH, MAP, closed_loop_mpc
+    from acmpc_tpu_torch.bench.lap_sweep import LapSweep, SweepGrid
+    from acmpc_tpu_torch.localise.track_map import load_track_map
+
+    mpc = closed_loop_mpc(DEVICE)
+    tm = load_track_map(MAP, device=DEVICE)
+    sweep = LapSweep(mpc, tm, half_width=HALF_WIDTH, dt=0.1)
+    grid = SweepGrid.perturbed(
+        torch.Generator(device=DEVICE).manual_seed(0), SWEEP_BATCH, tm.n_centre, v_max=24.0
+    )
+
+    def timed(run):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = run(grid, SWEEP_STEPS)
+        torch.cuda.synchronize()
+        return metrics, time.perf_counter() - t0
+
+    # untimed first, then in turns: run, fused, fused, run
+    sweep.run(grid, SWEEP_STEPS)
+    (metrics, wall), launches = _counted(lambda: timed(sweep.run))
+    fused, fused_wall = timed(sweep.run_fused)
+    fused_wall = (fused_wall + timed(sweep.run_fused)[1]) / 2
+    wall = (wall + timed(sweep.run)[1]) / 2
+    summary = sweep.summarise(metrics, SWEEP_STEPS)
+    _check_closed_loop("vmapped sweep", SWEEP_STEPS, launches, summary["solve_success_rate"], 0.99)
+    if not torch.equal(metrics["solved"], fused["solved"]):
+        raise RuntimeError("vmapped sweep: solved flags differ from run_fused's")
+    err = max(float((metrics[k] - fused[k]).abs().max()) for k in ("v", "offtrack"))
+    if err > VMAP_TOL:
+        raise RuntimeError(f"vmapped sweep: metrics {err} from run_fused's")
+    solves = SWEEP_BATCH * SWEEP_STEPS
+    return {
+        "batch": SWEEP_BATCH,
+        "steps": SWEEP_STEPS,
+        "launches": launches,
+        "closed_loop_solves_per_s": solves / wall,
+        "fused_closed_loop_solves_per_s": solves / fused_wall,
+        "wall_s": wall,
+        "fused_wall_s": fused_wall,
+        "max_abs_err_vs_fused": err,
+        "solve_success_rate": summary["solve_success_rate"],
+    }
+
+
+def _vmapped_sub_mesh() -> dict:
+    """(e): ``make_mesh(1)`` at two gloo ranks sharing the card
+    (``bench/pod_sweep.py``'s submesh case)."""
+    from acmpc_tpu_torch.bench import pod_sweep
+    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER
+
+    t0 = time.perf_counter()
+    (member, arrays), (outsider, _) = pod_sweep.launch(("submesh",), PARALLEL_RANKS, DEVICE, "gloo")["submesh"]
+    launch_s = time.perf_counter() - t0
+    rows = len(pod_sweep.SUBMESH_WINDOWS)
+    if (member["is_member"], member["rows"], member["n_solved"]) != (True, rows, rows):
+        raise RuntimeError(f"sub-mesh rank 0: {member}")
+    if member["launches"].get(CLUSTER, 0) == 0:
+        raise RuntimeError(f"sub-mesh rank 0 never launched {CLUSTER}: {member['launches']}")
+    err = float(np.abs(arrays["projected_control"] - arrays["batched"]).max())
+    if err > VMAP_LANE_TOL:
+        raise RuntimeError(f"sub-mesh: sharded_get_control {err} from batched_get_control")
+    error = outsider.get("error", "")
+    if outsider["is_member"] or outsider["rows"] != 0 or not ("rank 1 " in error and "mesh of 1 ranks" in error):
+        raise RuntimeError(f"sub-mesh rank 1: {outsider}")
+    return {
+        "launch_s": launch_s,
+        "rank0": member,
+        "rank1": outsider,
+        "max_abs_err_vs_batched": err,
+        "launches": member["launches"],
+    }
+
+
+def phase_vmapped() -> dict:
+    t0 = time.perf_counter()
+    parts = {
+        "racing": _vmapped_racing(),
+        "random_qps": _vmapped_random_qps(),
+        "mapping": _vmapped_mapping(),
+        "lap_sweep": _vmapped_lap_sweep(),
+        "sub_mesh": _vmapped_sub_mesh(),
+    }
+    launches = collections.Counter()
+    for part in parts.values():
+        launches.update(part["launches"])
+    info = {**parts, "launches": dict(launches), "wall_s": time.perf_counter() - t0, "card": card_line()}
+    emit("phase 15 vmapped", info)
+    return info
+
+
 def kernels_line(
     kernel: dict, main: dict, mapping: dict, sweep: dict, multi: dict, perception: dict, agent: dict,
-    tools: dict, parallel: dict,
+    tools: dict, parallel: dict, vmapped: dict,
 ) -> dict:
     """One row per kernel variant: launches from the paths that run it
-    (cluster: phases 4, 8, 9, 10, 12, 13's racing agent and 14's world of
-    one and two ranks; split: phases
-    6, 12 and 13's racelines; stream:
+    (cluster: phases 4, 8, 9, 10, 12, 13's racing agent, 14's world of
+    one and two ranks and 15's racing step, random QPs, lap sweep and
+    sub-mesh; split: phases 6, 12, 13's racelines and 15's mapping step;
+    stream:
     none since the split kernel, so the count from phase 6 is 0; chain
     edges: phase 10's loop, phase 12 and 13's racing agent; chain scan: none since the
     chain-edges kernel, so the count from phase 10's loop is 0), numbers
@@ -1894,11 +2224,12 @@ def kernels_line(
     h50, h50a = f"n{n50}_B{BATCH}", f"n{n50}_B{BATCH}_active"
     h100, h100a = f"n{n100}_B{MAPPING_BATCH}", f"n{n100}_B{MAPPING_BATCH}_active"
     cluster_paths = collections.Counter(agent["launches"])
-    for path in (main, sweep, multi, perception, tools, parallel):
+    for path in (main, sweep, multi, perception, tools, parallel, vmapped):
         cluster_paths.update(path["launches"])
     cluster_paths = {"launches": cluster_paths}
     split_paths = {"launches": sum(
-        (collections.Counter(p["launches"]) for p in (mapping, agent, tools)), collections.Counter()
+        (collections.Counter(p["launches"]) for p in (mapping, agent, tools, vmapped)),
+        collections.Counter(),
     )}
     scan = perception["chain_scan"]["band4"]
     edges = perception["chain_edges"]["band4"]
@@ -1966,8 +2297,9 @@ def main() -> int:
     agent = phase_agent()
     tools = phase_tools(agent)
     parallel = phase_parallel()
+    vmapped = phase_vmapped()
     print(json.dumps(kernels_line(
-        kernel, main_info, mapping, sweep, multi, perception, agent, tools, parallel
+        kernel, main_info, mapping, sweep, multi, perception, agent, tools, parallel, vmapped
     )))
     print(card_line())
     print(json.dumps({

@@ -310,6 +310,39 @@ def test_batched_step_on_card_matches_cpu(cuda_device):
     )
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("adaptive", [True, False])
+def test_batched_solve_matches_single_solves_on_card(cuda_device, adaptive):
+    """solve_box_qp over a scenario axis on the card: one chunk launch for
+    every lane, each lane against its unbatched solve. Status equal; x at
+    the tolerance for converged solves whose arithmetic differs in
+    rounding (tests/test_torch_admm.py's X_TOL): the batch goes through
+    batched products and another cluster size than a single QP."""
+    from acmpc_tpu_torch.qp.admm import ADMMConfig, solve_box_qp
+
+    rng = np.random.default_rng(3)
+    qps = []
+    for _ in range(6):
+        Mx = rng.normal(size=(N, N))
+        A = rng.normal(size=(M, N))
+        centre = A @ rng.normal(size=N)
+        half = np.abs(rng.normal(size=M)) + 0.5
+        lo, hi = centre - half, centre + half
+        hi[:3] = lo[:3]
+        qps.append([Mx @ Mx.T + 0.5 * np.eye(N), rng.normal(size=N), A, lo, hi])
+    stacked = [torch.as_tensor(np.stack([qp[i] for qp in qps]), dtype=torch.float32, device=cuda_device)
+               for i in range(5)]
+    cfg = ADMMConfig() if adaptive else ADMMConfig(adaptive_rho=False, rho=0.01, max_iter=20000)
+    admm_chunk.launches.clear()
+    batch = solve_box_qp(*stacked, cfg)
+    assert sum(admm_chunk.launches.values()) == int(batch.iterations.max()) // cfg.check_every
+    assert bool(batch.solved.all())
+    for i in range(len(qps)):
+        single = solve_box_qp(*(t[i] for t in stacked), cfg)
+        assert int(single.status) == int(batch.status[i])
+        torch.testing.assert_close(batch.x[i], single.x, rtol=2e-2, atol=2e-2)
+
+
 # -- the closed loop and the all-tracks solve (no JAX on the card machine)
 TRACKS = [
     "monza", "spa", "silverstone", "nordschleife",

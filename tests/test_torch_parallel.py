@@ -145,6 +145,7 @@ def _inputs(world) -> dict:
         inp[f"sweep/{k}"] = v
     inp["pod/run"] = np.ones(1)
     inp["realmap/run"] = np.ones(1)
+    inp["submesh/refs"] = _control_refs(4)
     return inp
 
 
@@ -414,6 +415,69 @@ def test_pod_mesh_coordinates_and_collectives(ranks):
         assert list(o["pod/gather_chip"]) == same_host
         assert float(o["pod/next_chip"]) == (values[r + 1] if chip < per_host - 1 else -1.0)
         assert float(o["pod/prev_host"]) == (values[r - per_host] if host > 0 else -1.0)
+
+
+def _sub_meshes(world):
+    return (1, 2) if world > 2 else (1,)
+
+
+def test_sub_mesh_holds_the_first_ranks(ranks):
+    """make_mesh(n) below the world size: ranks 0..n-1 are its members,
+    in order, and reduce over it alone; the others hold no rows."""
+    world, inp, outs = ranks
+    batch = len(inp["submesh/refs"])
+    for n in _sub_meshes(world):
+        tag = f"submesh/{n}"
+        members = [r for r, o in enumerate(outs) if bool(o[f"{tag}/is_member"])]
+        assert members == list(range(n))
+        for r, o in enumerate(outs):
+            assert int(o[f"{tag}/rows"]) == (batch // n if r < n else 0)
+            if r < n:
+                assert int(o[f"{tag}/index"]) == r
+                assert float(o[f"{tag}/psum"]) == sum(10.0 * k + 1 for k in range(n))
+
+
+def test_sub_mesh_outsiders_collectives_raise(ranks):
+    """A collective on a rank outside the sub-mesh raises and names the
+    rank and the mesh's size (it never waits on the members)."""
+    world, _, outs = ranks
+    for n in _sub_meshes(world):
+        for r in range(n, world):
+            msg = str(outs[r][f"submesh/{n}/error"])
+            assert f"rank {r} " in msg and f"mesh of {n} ranks" in msg, msg
+
+
+def test_make_mesh_above_the_world_raises(ranks):
+    world, _, outs = ranks
+    for o in outs:
+        msg = str(o["submesh/above_error"])
+        assert f"make_mesh({world + 1})" in msg and f"has {world} rank" in msg, msg
+
+
+def test_sub_mesh_sharded_get_control_matches_batched(ranks):
+    """On the members, the sharded step is batched_get_control on their
+    rows: equal to rank 0's batched_get_control on the whole batch (each
+    lane is solved as it would be alone), and to JAX's
+    batched_get_control."""
+    world, inp, outs = ranks
+    refs = inp["submesh/refs"]
+    jmpc = JMPC(
+        JConfig(horizon=cases.CONTROL_HORIZON, constraints=JConstraints(**cases.CONS), **cases.CONTROL),
+        JModel(JVehicle(), cases.CONS["v_min"], cases.CONS["v_max"]),
+    )
+    jstates, _ = jmpc.batched_get_control(j_replicate_state(jmpc, len(refs)), jnp.asarray(refs))
+    for n in _sub_meshes(world):
+        tag = f"submesh/{n}"
+        got = np.concatenate([outs[r][f"{tag}/projected_control"] for r in range(n)])
+        np.testing.assert_array_equal(got, outs[0]["submesh/batched"])
+        np.testing.assert_allclose(got, np.asarray(jstates.projected_control), **CONTROL_TOL)
+        for r in range(n):
+            assert int(outs[r][f"{tag}/n_solved"]) == len(refs)
+
+
+def test_one_process_make_mesh_above_the_world_raises():
+    with pytest.raises(ValueError, match="has 1 rank"):
+        make_mesh(2, device="cpu")
 
 
 def test_one_process_mesh_needs_no_group():

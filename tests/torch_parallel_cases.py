@@ -166,6 +166,39 @@ def case_pod(mesh, inp, out):
     out["pod/prev_host"] = pod.from_prev(value, fill=-1.0, axis="host").numpy()
 
 
+def case_submesh(mesh, inp, out):
+    """make_mesh below the world size (a mesh of rank 0 alone and, at four
+    ranks, one of ranks 0-1), made on every rank in the same order, and
+    above it. Members run the sharded control step on their rows; the
+    others hold no rows and their collectives raise."""
+    world = mesh.size
+    mpc = make_mpc(CONTROL_HORIZON)
+    everything = torch.as_tensor(inp["submesh/refs"])
+    states, _ = mpc.batched_get_control(replicate_state(mpc, len(everything)), everything)
+    out["submesh/batched"] = states.projected_control.numpy()
+    for n in (1, 2) if world > 2 else (1,):
+        sub = make_mesh(n, device="cpu", axis_name="x")
+        tag = f"submesh/{n}"
+        refs = scenario_sharding(sub, "x").local(inp["submesh/refs"])
+        out[f"{tag}/is_member"] = np.asarray(sub.is_member)
+        out[f"{tag}/rows"] = np.asarray(refs.shape[0])
+        if sub.is_member:
+            states, fleet = sharded_get_control(mpc, sub, "x")(replicate_state(mpc, len(refs)), refs)
+            out[f"{tag}/projected_control"] = states.projected_control.numpy()
+            out[f"{tag}/n_solved"] = fleet["n_solved"].numpy()
+            out[f"{tag}/index"] = np.asarray(sub.axis_index("x"))
+            out[f"{tag}/psum"] = sub.psum(torch.tensor(10.0 * sub.global_rank + 1), "x").numpy()
+        else:
+            try:
+                sub.psum(torch.tensor(1.0), "x")
+            except RuntimeError as err:
+                out[f"{tag}/error"] = np.asarray(str(err))
+    try:
+        make_mesh(world + 1, device="cpu")
+    except ValueError as err:
+        out["submesh/above_error"] = np.asarray(str(err))
+
+
 CASES = {
     "tridiag": case_tridiag,
     "scan": case_scan,
@@ -175,6 +208,7 @@ CASES = {
     "control": case_control,
     "sweep": case_sweep,
     "pod": case_pod,
+    "submesh": case_submesh,
 }
 
 
