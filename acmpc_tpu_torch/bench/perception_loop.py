@@ -136,15 +136,30 @@ def sim_masks(sim, centre: np.ndarray, n: int):
     each off the centreline by up to 2 m and 0.15 rad."""
     masks = []
     for k in range(n):
-        i = k * len(centre) // n
-        p0, p1 = centre[i], centre[(i + 1) % len(centre)]
-        heading = float(np.arctan2(p1[1] - p0[1], p1[0] - p0[0]))
-        normal = np.array([-np.sin(heading), np.cos(heading)])
-        pos = p0 + 2.0 * np.sin(1.7 * k) * normal
-        sim.x, sim.y = float(pos[0]), float(pos[1])
-        sim.yaw = heading + 0.15 * np.cos(2.3 * k)
+        sim.x, sim.y, sim.yaw = _pose(centre, k, n)
         masks.append(sim.render_drivable_mask())
     return masks
+
+
+def _pose(centre: np.ndarray, k: int, n: int) -> tuple[float, float, float]:
+    i = k * len(centre) // n
+    p0, p1 = centre[i], centre[(i + 1) % len(centre)]
+    heading = float(np.arctan2(p1[1] - p0[1], p1[0] - p0[0]))
+    normal = np.array([-np.sin(heading), np.cos(heading)])
+    pos = p0 + 2.0 * np.sin(1.7 * k) * normal
+    return float(pos[0]), float(pos[1]), heading + 0.15 * np.cos(2.3 * k)
+
+
+def sim_frames(sim, centre: np.ndarray, n: int):
+    """Frames and their masks, rendered at :func:`sim_masks`'s ``n``
+    poses, each with its own texture seed."""
+    images, masks = [], []
+    for k, mask in enumerate(sim_masks(sim, centre, n)):
+        sim.x, sim.y, sim.yaw = _pose(centre, k, n)
+        sim.t = 7.3 * k
+        masks.append(mask)
+        images.append(sim.render_camera_image(mask))
+    return images, masks
 
 
 def reference_from_tracks(centre: torch.Tensor, horizon: int, n_poly: int) -> torch.Tensor:

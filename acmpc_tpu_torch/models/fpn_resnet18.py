@@ -12,9 +12,16 @@ Semantics kept from the Flax model: explicit paddings (1 on the 3x3
 convolutions, 3 on the 7x7 stem, none on the 1x1 ones, which is what
 Flax's 'SAME' gives there); max pooling padded with -inf; nearest 2x
 upsampling; BatchNorm (running statistics) and GroupNorm (32 groups)
-with eps 1e-5; the classifier in fp32 on whatever the parameters hold;
-input dims divisible by 32. BatchNorm is not folded into the
-convolutions. The parameters are kept in the compute dtype.
+with eps 1e-5; dropout at 0.2 before the classifier, switched by the
+``train`` argument alone; the classifier in fp32 on whatever the
+parameters hold; input dims divisible by 32. BatchNorm is not folded
+into the convolutions. The parameters are kept in the compute dtype.
+
+Training (``cli/train_segmenter.py``) follows the JAX trainer, which
+differentiates the whole variables tree: the BatchNorm statistics are
+trained as leaves. They stay buffers here; a caller that sets
+``requires_grad`` on them gets Flax's explicit normalisation, through
+which gradients reach them.
 
 The state dict mirrors the Flax tree: ``encoder.layer1_0.conv1.weight``
 is ``params/encoder/layer1_0/conv1/kernel`` (OIHW from HWIO),
@@ -35,6 +42,7 @@ from torch import nn
 BN_EPS = 1e-5
 GN_EPS = 1e-5
 GN_GROUPS = 32
+DROPOUT_RATE = 0.2
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False) -> nn.Conv2d:
@@ -44,7 +52,9 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False) -> n
 class BatchNorm(nn.Module):
     """Inference BatchNorm on running statistics (Flax's
     ``use_running_average=True``): scale and bias are parameters, mean
-    and var buffers."""
+    and var buffers. When the statistics require grad, the explicit form
+    of Flax's ``_normalize``, ``(x - mean) * (rsqrt(var + eps) * scale)
+    + bias``, since ``F.batch_norm`` does not differentiate them."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -54,10 +64,13 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x):
-        return F.batch_norm(
-            x, self.running_mean, self.running_var, self.weight, self.bias,
-            training=False, eps=BN_EPS,
-        )
+        if not (self.running_mean.requires_grad or self.running_var.requires_grad):
+            return F.batch_norm(
+                x, self.running_mean, self.running_var, self.weight, self.bias,
+                training=False, eps=BN_EPS,
+            )
+        mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
+        return (x - self.running_mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
 
 
 class BasicBlock(nn.Module):
@@ -110,6 +123,15 @@ def _upsample(x, factor: int):
     return F.interpolate(x, scale_factor=factor, mode="nearest")
 
 
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None = None) -> torch.Tensor:
+    """Flax's ``nn.Dropout``: keep each element with probability
+    ``1 - rate`` and divide the kept ones by it. The mask is drawn with
+    ``generator`` (on ``x``'s device; None: the default one)."""
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class Conv3x3GNReLU(nn.Module):
     def __init__(self, cin: int, features: int, upsample: bool = False):
         super().__init__()
@@ -142,7 +164,10 @@ class SegmentationBlock(nn.Module):
 class FPNResNet18(nn.Module):
     """FPN segmentation head over a ResNet-18 encoder (pyramid 256,
     segmentation 128, sum merge, 4x bilinear upsampling). ``forward``
-    takes (N, H, W, 3) and returns fp32 logits (N, H, W, num_classes)."""
+    takes (N, H, W, 3) and returns fp32 logits (N, H, W, num_classes).
+    ``train=True`` applies the dropout, with masks drawn from
+    ``generator``; as in Flax, ``Module.train()``/``eval()`` switch
+    nothing."""
 
     def __init__(
         self, num_classes: int = 10, pyramid_channels: int = 256, segmentation_channels: int = 128
@@ -155,7 +180,7 @@ class FPNResNet18(nn.Module):
             setattr(self, name, SegmentationBlock(pyramid_channels, segmentation_channels, ups))
         self.head = _conv(segmentation_channels, num_classes, 1, bias=True)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False, generator: torch.Generator | None = None):
         h, w = x.shape[-3], x.shape[-2]
         if h % 32 or w % 32:
             raise ValueError(
@@ -169,7 +194,9 @@ class FPNResNet18(nn.Module):
         p3 = self.p3(c3) + _upsample(p4, 2)
         p2 = self.p2(c2) + _upsample(p3, 2)
         x = self.s5(p5) + self.s4(p4) + self.s3(p3) + self.s2(p2)
-        # the classifier in fp32 (dropout is the identity at inference)
+        if train:
+            x = dropout(x, DROPOUT_RATE, generator)
+        # the classifier in fp32
         x = F.conv2d(x.float(), self.head.weight.float(), self.head.bias.float())
         x = F.interpolate(x, scale_factor=4, mode="bilinear", align_corners=True)
         return x.permute(0, 2, 3, 1)

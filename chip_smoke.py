@@ -179,6 +179,25 @@ Phases, each printing one line:
      (``bench/pod_sweep.py``'s submesh case): rank 0's
      ``sharded_get_control`` against ``batched_get_control``, rank 1
      holding no rows and its collective raising.
+  16. the segmenter's training (``cli/train_segmenter.py``; no kernel of
+     its own: cuDNN's fp32 convolutions with TF32 off): (a) one step at
+     192x320, batch 2, on the card against the CPU from the same
+     variables (the trainer's start, Flax's draws for ``PRNGKey(0)``, and
+     one drawn with a ``torch.Generator``): the loss, every leaf's
+     gradient (the BatchNorm statistics included) and every leaf after
+     the AdamW step, with ``bench/train_step.py``'s tolerances, and each
+     side's gradients against an fp64 step (reported); (b) ``main`` at the JAX tool's
+     defaults (seed 0, 300 steps, batch 16, lr 3e-4): the loss and val
+     IoU every 50 steps and at the last, the final val IoU above 0.9, the
+     host's frame sampling and the device step a step (CUDA events), ten
+     synchronised steps, images/s, peak memory, the FLOPs of a step
+     (``FlopCounterMode``) against XLA's count and the fp32 bound, and 20
+     steps of the training loop under ``torch.profiler`` (busy share);
+     (c) the checkpoint it wrote (fp16, Flax layout) loaded by
+     ``TrackSegmenter`` at 1280x736 in fp32 and bf16, IoU above 0.85 on 8
+     sim frames (the shipped checkpoint's beside it), then the
+     camera-to-command loop on it for 40 frames, gated as phase 10's; the
+     shipped checkpoint's SHA-256 the same before and after.
 Then the kernels line, the card line and, last, the result line. Any
 failure raises and the exit code is not 0. Without a CUDA device it
 exits with code 2 and prints no result.
@@ -301,6 +320,21 @@ VMAP_LANE_TOL = CPU_AGREE_TOL
 VMAP_TOL = 5e-3
 VMAP_QPS = 64
 VMAP_QP_TOL = 2e-2
+
+# phase 16: the segmenter's trainer at the JAX tool's defaults. The card's
+# step against the CPU's at the tool's frame size (batch 2), held with
+# bench/train_step.py's tolerances and its gradient tolerance for the two
+# devices; the trained checkpoint's sim frames at 1280x736 (the IoU gate
+# is IOU_MIN, the shipped model's); steps timed with a synchronise, and
+# steps profiled, after the training; XLA's cost analysis of the JAX
+# step at the tool's shape (CPU, with its elementwise work), beside
+# FlopCounterMode's count of the port's on the card
+TRAIN_CHECK_BATCH = 2
+TRAIN_IOU_FRAMES = 8
+TRAIN_SYNCED_STEPS = 10
+TRAIN_PROFILE_STEPS = 20
+XLA_STEP_FLOP = 377.3e9
+SHIPPED_FPN = ROOT / "data" / "models" / "segmentation" / "synthetic_fpn.msgpack"
 
 
 def emit(phase: str, payload: dict) -> None:
@@ -1132,6 +1166,18 @@ def phase_multi_track() -> dict:
     return info
 
 
+def _flat_leaves(tree: dict) -> list:
+    """The arrays of a nested dict."""
+    leaves, stack = [], [tree]
+    while stack:
+        for v in stack.pop().values():
+            if isinstance(v, dict):
+                stack.append(v)
+            else:
+                leaves.append(v)
+    return leaves
+
+
 def _iou(pred: np.ndarray, truth: np.ndarray) -> float:
     pred, truth = pred == 1, truth.astype(bool)
     return float((pred & truth).sum() / max((pred | truth).sum(), 1))
@@ -1192,13 +1238,7 @@ def phase_perception() -> dict:
     # 1. the shipped checkpoint through the port's reader
     cfg = loop.perception_config()  # 1280x736, bf16, training camera
     variables = read_checkpoint(ROOT / cfg.model_path)
-    leaves, stack = [], [variables]
-    while stack:
-        for v in stack.pop().values():
-            if isinstance(v, dict):
-                stack.append(v)
-            else:
-                leaves.append(v)
+    leaves = _flat_leaves(variables)
     n_params = int(sum(v.size for v in leaves))
     stored = sorted({str(v.dtype) for v in leaves})
     if n_params != FPN_PARAMETERS:
@@ -2184,17 +2224,156 @@ def phase_vmapped() -> dict:
     return info
 
 
+def _sha256(path: pathlib.Path) -> str:
+    import hashlib
+
+    return hashlib.sha256(path.read_bytes()).hexdigest()
+
+
+def _percentiles(ms: list) -> dict:
+    a = np.asarray(ms)
+    return {"p50": float(np.percentile(a, 50)), "p90": float(np.percentile(a, 90)), "mean": float(a.mean())}
+
+
+def phase_training() -> dict:
+    """The segmenter's trainer on the card: (a) one step against the CPU;
+    (b) ``cli/train_segmenter.main`` at the JAX tool's defaults, its IoU
+    gate, the step's split, rate, memory, FLOPs and busy share; (c) the
+    checkpoint it wrote, at 1280x736 in fp32 and bf16 and in the
+    camera-to-command loop; the shipped checkpoint untouched."""
+    import torch
+
+    from acmpc_tpu_torch.bench import perception_loop as loop
+    from acmpc_tpu_torch.bench import train_step as bench
+    from acmpc_tpu_torch.bench.full_lap import closed_loop_mpc
+    from acmpc_tpu_torch.cli import train_segmenter as ts
+    from acmpc_tpu_torch.models.checkpoint import read_checkpoint
+    from acmpc_tpu_torch.ops import track_chain as chain
+    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER
+    from acmpc_tpu_torch.perception.perceiver import Perceiver
+    from acmpc_tpu_torch.perception.segmentation import TrackSegmenter
+
+    t_phase = time.perf_counter()
+    shipped_sha = _sha256(SHIPPED_FPN)
+    info: dict = {}
+    # (a) one step on the card against the CPU from the same variables:
+    # the trainer's start, and one drawn with a torch.Generator
+    sim, rng = ts.make_sim(0)
+    images, masks = ts.sample_frames(sim, rng, TRAIN_CHECK_BATCH)
+    info["card_vs_cpu"] = {"shape": [TRAIN_CHECK_BATCH, ts.TRAIN_H, ts.TRAIN_W]}
+    for start, variables in (("flax:0", ts.init_variables(0)), ("torch:0", bench.torch_draws(0))):
+        records = {}
+        for dev in ("cpu", DEVICE):
+            model = ts.make_model(variables, dev)
+            opt = ts.make_optimizer(model, ts.LR)
+            records[dev] = bench.step_record(
+                model, opt, torch.as_tensor(images, device=dev), torch.as_tensor(masks, device=dev)
+            )
+        errors = bench.compare_records(records[DEVICE], records["cpu"], ts.LR, bench.CARD_GRAD_RTOL)
+        # each side's gradients against an fp64 step from the same variables
+        exact = bench.fp64_gradients(variables, images, masks)
+        errors["against_fp64"] = {dev: bench.gradient_error(records[dev]["grads"], exact) for dev in records}
+        if errors["fails"]:
+            raise RuntimeError(f"training step from {start}, card against CPU: {errors['fails'][:5]}")
+        info["card_vs_cpu"][start] = errors
+
+    # (b) the trainer as a user runs it, at the tool's defaults
+    torch.cuda.reset_peak_memory_stats()
+    run = ts.main([], device=DEVICE)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(row["loss"]) for row in run.log):
+        raise RuntimeError(f"training loss not finite: {run.log}")
+    steps, batch = ts.STEPS, ts.BATCH
+    step_ms = _percentiles(run.step_ms)
+    # after the checkpoint is written: synchronised steps, the FLOP
+    # count and the profile continue training the same model
+    frames = [torch.as_tensor(a, device=DEVICE) for a in ts.sample_frames(sim, rng, batch)]
+    synced = _percentiles(bench.synced_step_ms(run.model, run.optimizer, *frames, TRAIN_SYNCED_STEPS))
+    flops = bench.count_flops(run.model, run.optimizer, *frames)
+
+    def loop_step():
+        batch_frames = ts.sample_frames(sim, rng, batch)
+        ts.train_step(run.model, run.optimizer, *(torch.as_tensor(a, device=DEVICE) for a in batch_frames))
+
+    profile = bench.profile_steps(loop_step, TRAIN_PROFILE_STEPS, torch.device(DEVICE))
+    bound_ms = 1e3 * flops / FP32_FLOP_PER_S
+    info["train"] = {
+        "steps": steps,
+        "batch": batch,
+        "log": run.log,
+        "final_val_iou": run.final_iou,
+        "wall_s": run.wall_s,
+        "eval_s": run.eval_s,
+        "images_per_s": batch * steps / run.wall_s,
+        "sample_ms": _percentiles(run.sample_ms),
+        "device_step_ms": step_ms,
+        "synced_step_ms": synced,
+        "device_images_per_s": batch / (step_ms["p50"] / 1e3),
+        "peak_memory_gib": peak / 2**30,
+        "flop_per_step": flops,
+        "xla_flop_per_step": XLA_STEP_FLOP,
+        "achieved_tflop_per_s": flops / (step_ms["p50"] / 1e3) / 1e12,
+        "achieved_tflop_per_s_xla_count": XLA_STEP_FLOP / (step_ms["p50"] / 1e3) / 1e12,
+        "bound_ms": bound_ms,
+        "bound_by": "operations",
+        "bound_share": bound_ms / step_ms["p50"],
+        "profile": profile,
+    }
+
+    # (c) the checkpoint it wrote, through the port's loaders
+    out = ts.DEFAULT_OUT
+    cfg = dataclasses.replace(loop.perception_config(), model_path=str(out))
+    centre, left, right, lap_m = loop.circuit()
+    big_sim = loop.make_sim(cfg, centre, left, right)
+    frames, truths = loop.sim_frames(big_sim, centre, TRAIN_IOU_FRAMES)
+    iou = {}
+    for label, path, precision in (
+        ("fp32", out, "fp32"), ("bf16", out, "bf16"), ("shipped_fp32", SHIPPED_FPN, "fp32")
+    ):
+        seg = TrackSegmenter(dataclasses.replace(cfg, model_path=str(path), precision=precision), device=DEVICE)
+        preds = [seg.segment_drivable_area(f)[0].cpu().numpy() for f in frames]
+        iou[label] = _iou(np.stack(preds), np.stack(truths))
+    if min(iou["fp32"], iou["bf16"]) <= IOU_MIN:
+        raise RuntimeError(f"trained checkpoint at {cfg.image_width}x{cfg.image_height}: IoU {iou} <= {IOU_MIN}")
+    perc = Perceiver(cfg, read_checkpoint(out), DEVICE)
+    mpc = closed_loop_mpc(DEVICE)
+    loop_run, launches = _counted(lambda: loop.perception_in_loop(perc, mpc, big_sim, centre, lap_m, LOOP_FRAMES))
+    if loop_run["solve_success"] != 1.0:
+        raise RuntimeError(f"trained checkpoint's loop: solve success {loop_run['solve_success']}")
+    if not loop_run["max_offtrack_m"] < loop.HALF_WIDTH:
+        raise RuntimeError(f"trained checkpoint's loop: the car left the track by {loop_run['max_offtrack_m']} m")
+    if launches.get(chain.TRACK_CHAIN_EDGES, 0) != loop_run["frames"] + 1 or launches.get(CLUSTER, 0) == 0:
+        raise RuntimeError(f"trained checkpoint's loop: launches {launches} for {loop_run['frames']} + 1 frames")
+    if _sha256(SHIPPED_FPN) != shipped_sha:
+        raise RuntimeError("the shipped checkpoint changed during the training phase")
+    info["checkpoint"] = {
+        "path": str(out.relative_to(ROOT)),
+        "stored_dtypes": sorted({str(v.dtype) for v in _flat_leaves(read_checkpoint(out))}),
+        "resolution": f"{cfg.image_width}x{cfg.image_height}",
+        "frames": TRAIN_IOU_FRAMES,
+        "iou": iou,
+        "loop": {k: v for k, v in loop_run.items() if k != "ms_all"},
+        "shipped_sha256": shipped_sha,
+    }
+    info["launches"] = launches
+    info["phase_s"] = time.perf_counter() - t_phase
+    info["card"] = card_line()
+    emit("phase 16 training", info)
+    return info
+
+
 def kernels_line(
     kernel: dict, main: dict, mapping: dict, sweep: dict, multi: dict, perception: dict, agent: dict,
-    tools: dict, parallel: dict, vmapped: dict,
+    tools: dict, parallel: dict, vmapped: dict, training: dict,
 ) -> dict:
     """One row per kernel variant: launches from the paths that run it
     (cluster: phases 4, 8, 9, 10, 12, 13's racing agent, 14's world of
-    one and two ranks and 15's racing step, random QPs, lap sweep and
-    sub-mesh; split: phases 6, 12, 13's racelines and 15's mapping step;
-    stream:
+    one and two ranks, 15's racing step, random QPs, lap sweep and
+    sub-mesh and 16's loop on the trained checkpoint; split: phases 6, 12,
+    13's racelines and 15's mapping step; stream:
     none since the split kernel, so the count from phase 6 is 0; chain
-    edges: phase 10's loop, phase 12 and 13's racing agent; chain scan: none since the
+    edges: phase 10's loop, phase 12 and 13's racing agent and 16's loop;
+    chain scan: none since the
     chain-edges kernel, so the count from phase 10's loop is 0), numbers
     from phase 3 at the horizon-50
     B = 256 or the mapping shapes (stream: at the mapping shapes, on the
@@ -2224,7 +2403,7 @@ def kernels_line(
     h50, h50a = f"n{n50}_B{BATCH}", f"n{n50}_B{BATCH}_active"
     h100, h100a = f"n{n100}_B{MAPPING_BATCH}", f"n{n100}_B{MAPPING_BATCH}_active"
     cluster_paths = collections.Counter(agent["launches"])
-    for path in (main, sweep, multi, perception, tools, parallel, vmapped):
+    for path in (main, sweep, multi, perception, tools, parallel, vmapped, training):
         cluster_paths.update(path["launches"])
     cluster_paths = {"launches": cluster_paths}
     split_paths = {"launches": sum(
@@ -2260,7 +2439,7 @@ def kernels_line(
                 "source": f"acmpc_tpu_torch/csrc/{chain.EDGES_SOURCE}",
                 "replaces": "acmpc_tpu/perception/tracks.py:62",
                 "launches": sum(
-                    p["launches"].get(chain.TRACK_CHAIN_EDGES, 0) for p in (perception, agent, tools)
+                    p["launches"].get(chain.TRACK_CHAIN_EDGES, 0) for p in (perception, agent, tools, training)
                 ),
                 "max_abs_err": perception["chain_edges"]["max_abs_err"],
                 "ms": edges["ms"],
@@ -2298,8 +2477,9 @@ def main() -> int:
     tools = phase_tools(agent)
     parallel = phase_parallel()
     vmapped = phase_vmapped()
+    training = phase_training()
     print(json.dumps(kernels_line(
-        kernel, main_info, mapping, sweep, multi, perception, agent, tools, parallel, vmapped
+        kernel, main_info, mapping, sweep, multi, perception, agent, tools, parallel, vmapped, training
     )))
     print(card_line())
     print(json.dumps({

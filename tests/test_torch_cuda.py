@@ -984,3 +984,68 @@ def test_tridiag_solve_and_spd_inverse_on_card_match_cpu(cuda_device):
     eye = torch.eye(n, device=cuda_device)
     assert float((eye - K.to(cuda_device) @ card).abs().max()) < 1e-3
     torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=1e-4 * float(cpu.abs().max()))
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One training step at the tool's frame size, batch 2, from the same
+    variables: the loss, every leaf's gradient (the BatchNorm statistics
+    included) and every leaf after the AdamW step, with
+    bench/train_step.py's tolerances and its card-against-CPU gradient
+    tolerance."""
+    from acmpc_tpu_torch.bench import train_step as bench
+    from acmpc_tpu_torch.cli import train_segmenter as ts
+
+    variables = ts.init_variables(0)
+    images, masks = ts.sample_frames(*ts.make_sim(0), 2)
+    records = {}
+    for device in ("cpu", cuda_device):
+        model = ts.make_model(variables, device)
+        opt = ts.make_optimizer(model, ts.LR)
+        records[str(device)] = bench.step_record(
+            model, opt, torch.as_tensor(images, device=device), torch.as_tensor(masks, device=device)
+        )
+    errors = bench.compare_records(records["cuda"], records["cpu"], ts.LR, bench.CARD_GRAD_RTOL)
+    assert errors["fails"] == [], errors
+    assert float(records["cuda"]["grads"]["encoder.bn1.running_var"].abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_batchnorm_gradient_path_on_card_matches_cpu(cuda_device):
+    """BatchNorm with its statistics requiring grad (Flax's explicit
+    form) on the card against the CPU: the output and the gradients of
+    scale, bias, mean, var and the input; without grad on the statistics
+    the card runs F.batch_norm, and the two forms agree."""
+    from acmpc_tpu_torch.models.fpn_resnet18 import BN_EPS, BatchNorm
+
+    gen = torch.Generator().manual_seed(0)
+    c = 64
+    x = torch.randn(2, c, 16, 16, generator=gen)
+    w = torch.randn(2, c, 16, 16, generator=gen)
+    state = {
+        "weight": 1.0 + 0.2 * torch.randn(c, generator=gen),
+        "bias": 0.2 * torch.randn(c, generator=gen),
+        "running_mean": 0.5 * torch.randn(c, generator=gen),
+        "running_var": 0.2 + 1.8 * torch.rand(c, generator=gen),
+    }
+    out = {}
+    for device in ("cpu", cuda_device):
+        bn = BatchNorm(c)
+        bn.load_state_dict(state)
+        bn = bn.to(device)
+        with torch.no_grad():
+            plain = bn(x.to(device))
+        bn.running_mean.requires_grad_(True)
+        bn.running_var.requires_grad_(True)
+        xd = x.to(device).detach().requires_grad_(True)
+        y = bn(xd)
+        torch.testing.assert_close(y.detach(), plain, rtol=0, atol=1e-5)
+        want = torch.nn.functional.batch_norm(
+            x.to(device), state["running_mean"].to(device), state["running_var"].to(device),
+            state["weight"].to(device), state["bias"].to(device), training=False, eps=BN_EPS,
+        )
+        assert torch.equal(plain, want)
+        (y * w.to(device)).sum().backward()
+        out[str(device)] = [y.detach(), bn.weight.grad, bn.bias.grad, bn.running_mean.grad, bn.running_var.grad, xd.grad]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5 * float(want.abs().max()))

@@ -58,6 +58,7 @@ def test_import_pulls_in_no_jax():
         "bench.agent_loop", "utils.raceline", "cli.raceline", "dynamics.pacejka",
         "dashboard", "dashboard.session", "dashboard.raster", "dashboard.render",
         "dashboard.jpeg", "dashboard.server", "cli.view_map", "cli.benchmark_localisation",
+        "cli.train_segmenter", "bench.train_step",
         "localise.benchmarking.visualisation", "bench.batch_sweep",
         "ops.tridiag", "ops.tridiag_sharded", "ops.spd_inverse", "parallel",
         "parallel.mesh", "parallel.multihost", "cli.launch_pod", "bench.pod_sweep",
