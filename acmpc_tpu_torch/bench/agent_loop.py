@@ -150,6 +150,15 @@ def _clear_launches() -> None:
     chain_ops.chain_scan.launches.clear()
 
 
+def _other_chunk_kernels(launches: dict) -> dict:
+    """The chunk kernels in ``launches`` other than the box block's
+    cluster kernel, which every control QP of the agent takes."""
+    return {
+        k: v for k, v in launches.items()
+        if k in chunk_ops.KERNEL_NAMES and k != chunk_ops.CLUSTER_BOX and v
+    }
+
+
 class _Drive:
     """Frame loop bookkeeping: ``behaviour()`` walls, off-track, pacing
     on solve freshness, and the first localised frame."""
@@ -407,13 +416,14 @@ def racing_run(frames: int = 200, device="cuda", profile: bool = False, dashboar
         fails.append(f"thread exception {out['thread_exception']}, teardown joined {joined}")
     launches = out["launches"]
     if device.type == "cuda":
-        cluster = launches.get(chunk_ops.CLUSTER, 0)
+        cluster = launches.get(chunk_ops.CLUSTER_BOX, 0)
         if not cluster >= commands >= 1:
             fails.append(f"cluster launches {cluster} < command sets {commands} or none published")
         if launches.get(chain_ops.TRACK_CHAIN_EDGES, 0) < 1:
             fails.append("the chain-edges kernel never ran")
-        if launches.get(chunk_ops.SPLIT, 0) != 0:
-            fails.append("the split kernel ran in a racing run")
+        others = _other_chunk_kernels(launches)
+        if others:
+            fails.append(f"chunk kernels other than the box-block cluster ran in a racing run: {others}")
     out["fails"] = fails
     return out
 
@@ -496,10 +506,12 @@ def mapping_run(device="cuda", profile: bool = False) -> dict:
     if out["thread_exception"] or not joined:
         fails.append(f"thread exception {out['thread_exception']}, teardown joined {joined}")
     if device.type == "cuda":
-        if out["mapping"]["launches"].get(chunk_ops.SPLIT, 0) < 1:
-            fails.append("the split kernel never ran while mapping")
-        if r["launches"].get(chunk_ops.CLUSTER, 0) < 1:
-            fails.append("the cluster kernel never ran after the switch")
+        # horizon 100 and then 50, both in a cluster on the box block
+        for phase, launches in (("while mapping", out["mapping"]["launches"]), ("after the switch", r["launches"])):
+            if launches.get(chunk_ops.CLUSTER_BOX, 0) < 1:
+                fails.append(f"the box-block cluster kernel never ran {phase}")
+            if _other_chunk_kernels(launches):
+                fails.append(f"other chunk kernels ran {phase}: {_other_chunk_kernels(launches)}")
         if out["mapping"]["launches"].get(chain_ops.TRACK_CHAIN_EDGES, 0) < 1:
             fails.append("the chain-edges kernel never ran")
     out["fails"] = fails

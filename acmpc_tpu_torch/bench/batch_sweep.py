@@ -117,7 +117,7 @@ def measure(mpc: SpatialMPC, batch: int, steps: int = STEPS, chain: int = CHAIN)
     chained_ms = 1e3 * (time.perf_counter() - t0) / chain
 
     n, m = control_qp_sizes(mpc.horizon)
-    plan = plan_chunk(n, m, batch)
+    plan = plan_chunk(n, m, batch, n)  # the control QP's box block
     p50 = float(np.percentile(blocked, 50))
     return {
         "batch": batch,
@@ -132,7 +132,7 @@ def measure(mpc: SpatialMPC, batch: int, steps: int = STEPS, chain: int = CHAIN)
         "max_memory_allocated_bytes": (
             torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
         ),
-        "plan": {"variant": plan.variant, "C": plan.cluster, "smem_bytes": plan.smem_bytes},
+        "plan": {"variant": plan.variant, "C": plan.cluster, "smem_bytes": plan.smem_bytes, "box": plan.box},
         "chunk_launches_per_step": launches / steps,
         "solved_per_B": float(out.solved.float().mean()),
         "chained_solved_per_B": float(cur.solved.float().mean()),

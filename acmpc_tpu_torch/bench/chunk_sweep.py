@@ -15,7 +15,14 @@ m = 798): the split kernel at every C from 8 to 16 with the default ring
 (4 stages of 8 KB), other rings at C = 16 (``split_C16_S{stages}_{bytes}``),
 and the streaming kernel, B in {1, 8}. Each split row also gives its
 resident rows, the bytes each CTA streams per iteration and how many of
-its clusters the card holds at once. Needs a CUDA device.
+its clusters the card holds at once. Then the box block (``box_*`` rows,
+on the main path's QPs: chip_smoke.py's ``box_qps`` and
+``box_chunk_inputs``): horizon 50 at every C
+from 3 to 16 that is a power of two or at most 8, B in {1, 7, 16, 256};
+horizon 100 at C in {10, 11, 12, 14, 16}, B in {1, 8}; the raceline at
+586 points at C in {7, 8, 12, 16} and at 1,953 points (the split kernel,
+C = 16), B = 1; each cluster row with how many of its clusters the card
+holds at once. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import acmpc_tpu_torch.ops.admm_chunk as ops
-    from chip_smoke import ALPHA, H50, H100, random_chunk_inputs, time_cuda_ms
+    from chip_smoke import ALPHA, H50, H100, box_chunk_inputs, box_qps, random_chunk_inputs, time_cuda_ms
 
     def plans(n, m):
         out = {
@@ -82,6 +89,33 @@ def main() -> int:
                     "us_per_iter": 1e3 * (ms[50] - ms[25]) / 25,
                     "fixed_ms": ms[0],
                     **(split_facts(n, m, plan) if plan.variant == "split" else {}),
+                })
+    box_sizes = {
+        H50: ((1, 7, 16, 256), (3, 4, 5, 6, 8, 16)),
+        H100: ((1, 8), (10, 11, 12, 14, 16)),
+        (586, 586): ((1,), (7, 8, 12, 16)),
+        (1953, 1953): ((1,), ()),
+    }
+    for (n, m), (batches, sizes) in box_sizes.items():
+        for batch in batches:
+            _, inputs, kw = box_chunk_inputs(*box_qps(n, m, batch))
+            plans = {f"box_cluster_C{C}": ops.cluster_plan(n, m, C, n) for C in sizes}
+            if not plans:
+                plans = {"box_split_C16": ops.split_plan(n, m, 16, n_b=n)}
+            for name, plan in plans.items():
+                ms = {
+                    k: time_cuda_ms(
+                        lambda: ops._launch(plan, *inputs, n_iters=k, alpha=ALPHA, **kw), reps=20
+                    )
+                    for k in COUNTS
+                }
+                rows.append({
+                    "n": n, "m": m, "batch": batch, "variant": name,
+                    "planned": plan == ops.plan_chunk(n, m, batch, n),
+                    "ms": ms,
+                    "us_per_iter": 1e3 * (ms[50] - ms[25]) / 25,
+                    "fixed_ms": ms[0],
+                    "max_active_clusters": ops.max_active_clusters(plan, n, m, 0),
                 })
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

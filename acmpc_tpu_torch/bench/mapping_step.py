@@ -1,21 +1,21 @@
-"""The mapping control's warm step on the card, through the split kernel
-and through the streaming kernel it replaced, in one process.
+"""The mapping control's warm step on the card, on the box block and on
+the dense operator it replaced, in one process.
 
     python -m acmpc_tpu_torch.bench.mapping_step [--steps 5]
 
 Monza's mapping config (horizon 100: n = 498, m = 798) on the gentlest
 windows of chip_smoke.py's difficulty ramp: ``get_control`` at B = 1 and
 ``batched_get_control_fused`` at B = 8, each from a cold step and then
-stepped warm (each step from the previous carry). Every chunk goes to the
-kernel that ``plan_chunk`` picks ("planned": the split kernel) or, for
-this measurement only, to the streaming kernel ("stream"), in the order
-stream, planned, planned, stream. Prints one JSON line: per run, the
-host-clock ms of each warm step (each ended by a device synchronise),
-their median, the chunk launches per warm step, and every step solved;
-then, from ``torch.profiler`` over as many more warm steps run without
-those synchronisations, the device's busy ms per step, its idle share of
-the wall and the chunk kernel's ms per step; and the card. Needs a CUDA
-device.
+stepped warm (each step from the previous carry). Every chunk takes the
+box block as a diagonal, as the solver does ("box": the cluster kernel,
+C = 10) or, for this measurement only, the dense operator ("dense": the
+split kernel, C = 16), in the order dense, box, box, dense. Prints one
+JSON line: per run, the host-clock ms of each warm step (each ended by a
+device synchronise), their median, the chunk launches per warm step by
+kernel, and every step solved; then, from ``torch.profiler`` over as many
+more warm steps run without those synchronisations, the device's busy ms
+per step, its idle share of the wall and the chunk kernel's ms per step;
+and the card. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -35,18 +35,18 @@ ROOT = pathlib.Path(__file__).resolve().parents[2]
 
 
 @contextlib.contextmanager
-def _kernel(variant: str):
-    """Route every chunk to the streaming kernel ("stream"), or leave the
-    plan alone ("planned")."""
-    import acmpc_tpu_torch.ops.admm_chunk as ops
+def _operator(form: str):
+    """Hand every chunk the dense operator ("dense"), or leave the box
+    block to the solver ("box")."""
+    import acmpc_tpu_torch.qp.admm as admm
 
-    planned = ops.plan_chunk
-    if variant == "stream":
-        ops.plan_chunk = lambda n, m, B: ops.ChunkPlan("stream", 1, ops.stream_smem_bytes(n, m))
+    box_block = admm._box_block
+    if form == "dense":
+        admm._box_block = lambda As, box: None
     try:
         yield
     finally:
-        ops.plan_chunk = planned
+        admm._box_block = box_block
 
 
 def _run(mpc, refs, batch: int, steps: int) -> dict:
@@ -68,7 +68,7 @@ def _run(mpc, refs, batch: int, steps: int) -> dict:
         state, _ = step(state)
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
-        launches.append(sum(admm_chunk.launches.values()))
+        launches.append(dict(admm_chunk.launches))
         solved.append(bool(state.solved.all()))
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -110,9 +110,9 @@ def main(argv=None) -> int:
     )
     runs = []
     for batch in (1, MAPPING_BATCH):
-        for variant in ("stream", "planned", "planned", "stream"):
-            with _kernel(variant):
-                runs.append({"batch": batch, "kernel": variant, **_run(mpc, refs, batch, args.steps)})
+        for form in ("dense", "box", "box", "dense"):
+            with _operator(form):
+                runs.append({"batch": batch, "operator": form, **_run(mpc, refs, batch, args.steps)})
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,

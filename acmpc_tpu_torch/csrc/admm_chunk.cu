@@ -48,6 +48,32 @@
 // wait), which one resident CTA per SM does not hide
 // (bench/chunk_sweep.py times it per iteration).
 //
+// The box block ([box] launches, g not null). Every caller's A ends in
+// an identity over the n variables (the control QP's A = [A_eq; I], the
+// raceline's A = I), which Ruiz scaling keeps diagonal: A_s = [A_d;
+// diag(g)], m = m_d + n. Read densely, that block is n^2 floats of A and
+// n^2 more of W (K^-1 diag(g), the same K^-1 as W's first block, stored
+// twice), re-read every iteration. The [box] launch takes the operator
+// as the QP's construction fixes it: W_s = [K^-1 | K^-1 A_d'] (n, n+m_d),
+// A_d (m_d, n) and g (n,), and per iteration
+//
+//   xt   = W_s [sigma x + g (rho_b z_b - y_b); rho_d z_d - y_d] + c0
+//   zt_d = A_d xt,   zt_b = g xt
+//
+// with relax, clip and the dual update as above over all m rows (the
+// dense rows first, then the box rows). sigma stays out of the matrix:
+// folding it in as (g / sigma) w_b would scale rounding by 1 / sigma.
+// Box row i belongs to variable i, so the CTA that owns W row i updates
+// it in phase (a), right after xt_i, and stores sigma x_i + g_i w_i in
+// place of x_i in phase (b). Per scenario the operator shrinks from
+// 1.04 MB to 0.54 MB at horizon 50 (C = 3 fits where 5 did), from 4.17
+// to 2.19 MB at horizon 100 (a cluster of 10 where no 16 held it) and
+// from 4.12 to 1.38 MB for the 586-point raceline; the exchange carries
+// n + m_d floats instead of n + m. Where m_d = 0 no CTA reads xt in
+// phase (b); the xt stores still go out, since a CTA's wait for them is
+// what tells it that every peer has read the stacked vector it is about
+// to overwrite.
+//
 // Bulk copies need 16-byte-aligned addresses and sizes. A W row is
 // 4 (n + m) bytes (2,584 at horizon 50, not a multiple of 16), and the
 // base pointers are only 4-byte aligned in general, so each slice lands
@@ -83,10 +109,11 @@ constexpr int kMaxCluster = 16;
 constexpr int kBarrierBytes = 32;  // four mbarriers
 
 // Shared-memory layout of one CTA, in floats after the mbarriers:
-// W slice | A slice | stacked [x; w] (n+m) | xt (n) | c0 rows | x rows |
-// z, y, rho, 1/rho, l, u rows. Each slice reserves 3 floats for its
-// alignment shift and is rounded to 4 floats, so every region after it
-// stays 16-byte aligned.
+// W slice | A slice | stacked [x; w] (n+m_d) | xt (n) | c0 rows | x rows |
+// z, y, rho, 1/rho, l, u rows of A's slice | with the box block, g, z,
+// y, rho, 1/rho, l, u and the stacked value of the W rows' box rows.
+// Each slice reserves 3 floats for its alignment shift and is rounded to
+// 4 floats, so every region after it stays 16-byte aligned.
 struct Layout {
   int rows_w, rows_a;      // rows per CTA; the last CTAs may hold fewer
   long long w_slab, a_slab;
@@ -97,22 +124,27 @@ __host__ __device__ __forceinline__ long long round4(long long v) {
   return (v + 3) & ~3LL;
 }
 
-__host__ __device__ __forceinline__ Layout layout(int n, int m, int C) {
+// m_d: A's rows (W has n + m_d columns); box: the box block's vectors
+__host__ __device__ __forceinline__ Layout layout(int n, int m_d, int C,
+                                                  bool box) {
   Layout L;
   L.rows_w = (n + C - 1) / C;
-  L.rows_a = (m + C - 1) / C;
-  L.w_slab = round4((long long)L.rows_w * (n + m) + 3);
+  L.rows_a = (m_d + C - 1) / C;
+  L.w_slab = round4((long long)L.rows_w * (n + m_d) + 3);
   L.a_slab = round4((long long)L.rows_a * n + 3);
-  const long long floats = L.w_slab + L.a_slab + (n + m) + n +
-                           2LL * L.rows_w + 6LL * L.rows_a;
+  const long long floats = L.w_slab + L.a_slab + (n + m_d) + n +
+                           2LL * L.rows_w + 6LL * L.rows_a +
+                           (box ? 8LL * L.rows_w : 0LL);
   L.bytes = kBarrierBytes + 4 * floats;
   return L;
 }
 
+template <bool kBox>
 __global__ void __launch_bounds__(kThreads, 1)
 admm_chunk_cluster_kernel(const float* __restrict__ W,
                           const float* __restrict__ A,
                           const float* __restrict__ c0,
+                          const float* __restrict__ g,
                           const float* __restrict__ rho,
                           const float* __restrict__ lo,
                           const float* __restrict__ hi,
@@ -123,7 +155,8 @@ admm_chunk_cluster_kernel(const float* __restrict__ W,
                           float* __restrict__ x_out,
                           float* __restrict__ z_out,
                           float* __restrict__ y_out, int n, int m,
-                          int n_iters, float alpha, float one_minus_alpha) {
+                          int n_iters, float alpha, float one_minus_alpha,
+                          float sigma) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -131,18 +164,22 @@ admm_chunk_cluster_kernel(const float* __restrict__ W,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int k_w = n + m;
-  const Layout L = layout(n, m, C);
-  // this CTA's rows: W (and x, xt) rows [wr0, wr0 + nw), A (and z, y)
-  // rows [ar0, ar0 + na)
+  // A's rows; with the box block, rows [m_d, m) of z, y, rho, l, u are
+  // the box rows, row m_d + i that of variable i
+  const int m_d = kBox ? m - n : m;
+  const int k_w = n + m_d;
+  const Layout L = layout(n, m_d, C, kBox);
+  // this CTA's rows: W (and x, xt, box) rows [wr0, wr0 + nw), A (and z,
+  // y) rows [ar0, ar0 + na)
   const int wr0 = min(n, rank * L.rows_w);
   const int nw = min(n, wr0 + L.rows_w) - wr0;
-  const int ar0 = min(m, rank * L.rows_a);
-  const int na = min(m, ar0 + L.rows_a) - ar0;
+  const int ar0 = min(m_d, rank * L.rows_a);
+  const int na = min(m_d, ar0 + L.rows_a) - ar0;
 
   x_in += (size_t)b * n;
   x_out += (size_t)b * n;
   c0 += (size_t)b * n;
+  if (kBox) g += (size_t)b * n;
   const size_t vm = (size_t)b * m;
   z_in += vm;
   y_in += vm;
@@ -153,7 +190,13 @@ admm_chunk_cluster_kernel(const float* __restrict__ W,
   hi += vm;
 
   if (active != nullptr && active[b] == 0) {
-    for (int i = tid; i < nw; i += kThreads) x_out[wr0 + i] = x_in[wr0 + i];
+    for (int i = tid; i < nw; i += kThreads) {
+      x_out[wr0 + i] = x_in[wr0 + i];
+      if (kBox) {
+        z_out[m_d + wr0 + i] = z_in[m_d + wr0 + i];
+        y_out[m_d + wr0 + i] = y_in[m_d + wr0 + i];
+      }
+    }
     for (int j = tid; j < na; j += kThreads) {
       z_out[ar0 + j] = z_in[ar0 + j];
       y_out[ar0 + j] = y_in[ar0 + j];
@@ -179,9 +222,18 @@ admm_chunk_cluster_kernel(const float* __restrict__ W,
   float* inv_r = r + L.rows_a;
   float* l = inv_r + L.rows_a;
   float* h = l + L.rows_a;
+  // the box rows of this CTA's W rows (kBox only)
+  float* gb = h + L.rows_a;
+  float* zb = gb + L.rows_w;
+  float* yb = zb + L.rows_w;
+  float* rb = yb + L.rows_w;
+  float* inv_rb = rb + L.rows_w;
+  float* lb = inv_rb + L.rows_w;
+  float* hb = lb + L.rows_w;
+  float* v_own = hb + L.rows_w;  // sigma x + g w of the row, to stack
 
   const float* W_src = W + ((size_t)b * n + wr0) * k_w;
-  const float* A_src = A + ((size_t)b * m + ar0) * n;
+  const float* A_src = A + ((size_t)b * m_d + ar0) * n;
   // slices congruent to their global addresses mod 16 bytes
   float* Ws = w_region + ((reinterpret_cast<uintptr_t>(W_src) >> 2) & 3);
   float* As = a_region + ((reinterpret_cast<uintptr_t>(A_src) >> 2) & 3);
@@ -197,11 +249,29 @@ admm_chunk_cluster_kernel(const float* __restrict__ W,
   }
 
   for (int i = tid; i < k_w; i += kThreads) {
-    stacked[i] = i < n ? x_in[i] : rho[i - n] * z_in[i - n] - y_in[i - n];
+    if (i >= n) {
+      stacked[i] = rho[i - n] * z_in[i - n] - y_in[i - n];
+    } else if (kBox) {
+      const int j = m_d + i;
+      stacked[i] = sigma * x_in[i] + g[i] * (rho[j] * z_in[j] - y_in[j]);
+    } else {
+      stacked[i] = x_in[i];
+    }
   }
   for (int i = tid; i < nw; i += kThreads) {
     cs[i] = c0[wr0 + i];
     x_own[i] = x_in[wr0 + i];
+    if (kBox) {
+      const int j = m_d + wr0 + i;
+      const float rj = rho[j];
+      gb[i] = g[wr0 + i];
+      zb[i] = z_in[j];
+      yb[i] = y_in[j];
+      rb[i] = rj;
+      inv_rb[i] = 1.0f / rj;
+      lb[i] = lo[j];
+      hb[i] = hi[j];
+    }
   }
   for (int j = tid; j < na; j += kThreads) {
     const float rj = rho[ar0 + j];
@@ -228,14 +298,15 @@ admm_chunk_cluster_kernel(const float* __restrict__ W,
 
   // Every element of xt and of the stacked vector is stored once per
   // iteration, by its owner, into every CTA, so each CTA waits for its
-  // own 4 n and 4 (n + m) bytes and never for a cluster-wide barrier.
+  // own 4 n and 4 (n + m_d) bytes and never for a cluster-wide barrier.
   // Why one buffer of each is enough: a CTA stores the iteration's last
   // xt row only after all its warps have read the stacked vector, and its
   // last stacked row only after all its warps have read xt; a peer
   // overwrites either buffer only after it has received all of the other
   // from this CTA.
   for (int it = 0; it < n_iters; ++it) {
-    // (a) this CTA's rows of xt = W [x; w] + c0, to every peer
+    // (a) this CTA's rows of xt = W [x; w] + c0, to every peer; with the
+    // box block, the update of each row's box row
     mbar_wait(it == 0 ? &bars[0] : bar_st, it == 0 ? 0 : (it - 1) & 1);
     if (tid == 0) {
       mbar_expect_tx(bar_xt, 4u * n);
@@ -244,7 +315,17 @@ admm_chunk_cluster_kernel(const float* __restrict__ W,
     gemv(Ws, k_w, stacked, k_w, nw, warp, lane, [&](int i, float s) {
       const float xt_i = s + cs[i];
       if (lane < C) st_async(peer_xt + 4u * (wr0 + i), xt_i, peer_bar_xt);
-      if (lane == 0) x_own[i] = alpha * xt_i + one_minus_alpha * x_own[i];
+      if (lane == 0) {
+        x_own[i] = alpha * xt_i + one_minus_alpha * x_own[i];
+        if constexpr (kBox) {
+          const admm::RowUpdate u =
+              admm::row_update(gb[i] * xt_i, zb[i], yb[i], rb[i], inv_rb[i],
+                               lb[i], hb[i], alpha, one_minus_alpha);
+          zb[i] = u.z;
+          yb[i] = u.y;
+          v_own[i] = sigma * x_own[i] + gb[i] * u.w;
+        }
+      }
     });
 
     // (b) this CTA's rows of zt = A xt, their z, y update, and the new w
@@ -261,11 +342,13 @@ admm_chunk_cluster_kernel(const float* __restrict__ W,
       }
       if (lane < C) st_async(peer_st + 4u * (n + ar0 + j), u.w, peer_bar_st);
     });
-    // x row i was relaxed by lane 0 of warp i % kWarps in (a)
+    // x row i (and its box row) was updated by lane 0 of warp i % kWarps
+    // in (a)
     __syncwarp();
     if (lane < C) {
+      const float* own = kBox ? v_own : x_own;
       for (int i = warp; i < nw; i += kWarps) {
-        st_async(peer_st + 4u * (wr0 + i), x_own[i], peer_bar_st);
+        st_async(peer_st + 4u * (wr0 + i), own[i], peer_bar_st);
       }
     }
   }
@@ -273,33 +356,53 @@ admm_chunk_cluster_kernel(const float* __restrict__ W,
   // nothing is in flight into any CTA's shared memory past this point
   cluster.sync();
 
-  for (int i = tid; i < nw; i += kThreads) x_out[wr0 + i] = x_own[i];
+  for (int i = tid; i < nw; i += kThreads) {
+    x_out[wr0 + i] = x_own[i];
+    if (kBox) {
+      z_out[m_d + wr0 + i] = zb[i];
+      y_out[m_d + wr0 + i] = yb[i];
+    }
+  }
   for (int j = tid; j < na; j += kThreads) {
     z_out[ar0 + j] = z[j];
     y_out[ar0 + j] = y[j];
   }
 }
 
+// The kernel of a launch with or without the box block, its layout, or
+// false where the arguments are out of range.
+bool checked(int n, int m, int C, int box, Layout* L, const void** fn) {
+  if (C < 1 || C > kMaxCluster || n < 1 || m < 0 || (box && m < n)) {
+    return false;
+  }
+  *L = layout(n, box ? m - n : m, C, box != 0);
+  *fn = box ? (const void*)admm_chunk_cluster_kernel<true>
+            : (const void*)admm_chunk_cluster_kernel<false>;
+  return true;
+}
+
 }  // namespace
 
-// Dynamic shared memory of one CTA for a cluster of C CTAs, in bytes.
-extern "C" long long admm_chunk_cluster_smem_bytes(int n, int m, int C) {
-  return layout(n, m, C).bytes;
+// Dynamic shared memory of one CTA for a cluster of C CTAs, in bytes;
+// box != 0: A is the m - n rows of A_d and W has n + m - n columns.
+extern "C" long long admm_chunk_cluster_smem_bytes(int n, int m, int C,
+                                                   int box) {
+  return layout(n, box ? m - n : m, C, box != 0).bytes;
 }
 
 // How many clusters of C CTAs at (n, m) the card holds at once
 // (cudaOccupancyMaxActiveClusters) into *count; returns a CUDA error code.
-extern "C" int admm_chunk_cluster_max_active(int n, int m, int C, int* count) {
-  if (C < 1 || C > kMaxCluster) return (int)cudaErrorInvalidValue;
-  const long long smem = layout(n, m, C).bytes;
-  cudaError_t err = admm::configure_cluster(
-      (const void*)admm_chunk_cluster_kernel, C, smem);
+extern "C" int admm_chunk_cluster_max_active(int n, int m, int C, int box,
+                                             int* count) {
+  Layout L;
+  const void* fn;
+  if (!checked(n, m, C, box, &L, &fn)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = admm::configure_cluster(fn, C, L.bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  admm::cluster_launch_config(&cfg, &attr, 1, C, kThreads, smem, nullptr);
-  err = cudaOccupancyMaxActiveClusters(
-      count, (const void*)admm_chunk_cluster_kernel, &cfg);
+  admm::cluster_launch_config(&cfg, &attr, 1, C, kThreads, L.bytes, nullptr);
+  err = cudaOccupancyMaxActiveClusters(count, fn, &cfg);
   if (err != cudaSuccess) cudaGetLastError();
   return (int)err;
 }
@@ -307,27 +410,33 @@ extern "C" int admm_chunk_cluster_max_active(int n, int m, int C, int* count) {
 // Launch B clusters of C CTAs on `stream`; returns a CUDA error code (0
 // on success): that of a refused attribute or launch, else
 // cudaGetLastError(). All pointers are device pointers; `active` may be
-// null.
-extern "C" int admm_chunk_cluster_launch(const float* W, const float* A,
-                                         const float* c0, const float* rho,
-                                         const float* lo, const float* hi,
-                                         const float* x, const float* z,
-                                         const float* y, const uint8_t* active,
-                                         float* x_out, float* z_out,
-                                         float* y_out, int B, int n, int m,
-                                         int C, int n_iters, float alpha,
-                                         float one_minus_alpha, void* stream) {
-  if (C < 1 || C > kMaxCluster) return (int)cudaErrorInvalidValue;
-  const long long smem = layout(n, m, C).bytes;
-  cudaError_t err = admm::configure_cluster(
-      (const void*)admm_chunk_cluster_kernel, C, smem);
+// null, and `g` is null for a dense operator (sigma is then unused).
+extern "C" int admm_chunk_cluster_launch(
+    const float* W, const float* A, const float* c0, const float* g,
+    const float* rho, const float* lo, const float* hi, const float* x,
+    const float* z, const float* y, const uint8_t* active, float* x_out,
+    float* z_out, float* y_out, int B, int n, int m, int C, int n_iters,
+    float alpha, float one_minus_alpha, float sigma, void* stream) {
+  Layout L;
+  const void* fn;
+  const int box = g != nullptr;
+  if (!checked(n, m, C, box, &L, &fn)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = admm::configure_cluster(fn, C, L.bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  admm::cluster_launch_config(&cfg, &attr, B, C, kThreads, smem, stream);
-  err = cudaLaunchKernelEx(&cfg, admm_chunk_cluster_kernel, W, A, c0, rho, lo,
-                           hi, x, z, y, active, x_out, z_out, y_out, n, m,
-                           n_iters, alpha, one_minus_alpha);
+  admm::cluster_launch_config(&cfg, &attr, B, C, kThreads, L.bytes, stream);
+  if (box) {
+    err = cudaLaunchKernelEx(&cfg, admm_chunk_cluster_kernel<true>, W, A, c0,
+                             g, rho, lo, hi, x, z, y, active, x_out, z_out,
+                             y_out, n, m, n_iters, alpha, one_minus_alpha,
+                             sigma);
+  } else {
+    err = cudaLaunchKernelEx(&cfg, admm_chunk_cluster_kernel<false>, W, A, c0,
+                             g, rho, lo, hi, x, z, y, active, x_out, z_out,
+                             y_out, n, m, n_iters, alpha, one_minus_alpha,
+                             sigma);
+  }
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
 }

@@ -13,6 +13,16 @@
 // What bounds it on this card: bytes. Each iteration reads W and A once,
 // 4 (n (n+m) + m n) bytes for 2 (n (n+m) + m n) flops, 0.5 flop per byte.
 //
+// The box block ([box] launches, g not null), as in admm_chunk.cu: the
+// operator arrives as W_s = [K^-1 | K^-1 A_d'] (n, n + m_d), A_d (m_d, n)
+// and the diagonal g of the box rows, and the CTA that owns W row i
+// updates box row i in phase (a). Only W_s's and A_d's rows are resident
+// or streamed. Every plan since the box block took the control QPs into
+// clusters serves one such shape: the raceline at 1,953 points (n = 1,953,
+// m_d = 0), 15.3 MB of W_s an iteration across its 16 CTAs where the
+// dense operator was 45.8 MB; a CTA holds 22 of its 123 rows and streams
+// the rest.
+//
 // What the design does about it. As in admm_chunk.cu, CTA r of the
 // cluster owns a contiguous slice of W's rows and of A's rows, the
 // vectors move between CTAs by st.async stores onto each receiver's
@@ -104,8 +114,9 @@ __host__ __device__ __forceinline__ int ceil_div(int a, int b) {
 // Shared-memory layout of one CTA: 4 + 2 S mbarriers and S fill numbers
 // (8 bytes each, rounded to 16 bytes), then in floats:
 // resident W rows | resident A rows | S ring slots | edge table |
-// stacked [x; w] (n+m) | xt (n) | c0 rows | x rows | z, y, rho, 1/rho,
-// l, u rows. Resident regions reserve 3 floats for their alignment shift
+// stacked [x; w] (n+m_d) | xt (n) | c0 rows | x rows | z, y, rho, 1/rho,
+// l, u rows of A's slice | with the box block, g, z, y, rho, 1/rho, l, u
+// and the stacked value of the W rows' box rows. Resident regions reserve 3 floats for their alignment shift
 // and are rounded to 4 floats, as are the slots, so every region stays
 // 16-byte aligned. Computed on the host and passed to the kernel.
 struct Layout {
@@ -118,12 +129,13 @@ struct Layout {
   long long w_slab, a_slab, edges, bar_bytes, bytes;
 };
 
-Layout layout_with(int n, int m, int C, int S, int stage_bytes, int res_w,
-                   int res_a) {
-  const int k_w = n + m;
+// m_d: A's rows (W has n + m_d columns); box: the box block's vectors
+Layout layout_with(int n, int m_d, int C, int S, int stage_bytes, bool box,
+                   int res_w, int res_a) {
+  const int k_w = n + m_d;
   Layout L;
   L.rows_w = ceil_div(n, C);
-  L.rows_a = ceil_div(m, C);
+  L.rows_a = ceil_div(m_d, C);
   L.res_w = res_w;
   L.res_a = res_a;
   L.stages = S;
@@ -139,7 +151,8 @@ Layout layout_with(int n, int m, int C, int S, int stage_bytes, int res_w,
   L.bar_bytes = (8LL * (4 + 3 * S) + 15) / 16 * 16;
   const long long floats = L.w_slab + L.a_slab +
                            (long long)S * L.stage_floats + L.edges + k_w + n +
-                           2LL * L.rows_w + 6LL * L.rows_a;
+                           2LL * L.rows_w + 6LL * L.rows_a +
+                           (box ? 8LL * L.rows_w : 0LL);
   L.bytes = L.bar_bytes + 4 * floats;
   return L;
 }
@@ -147,16 +160,16 @@ Layout layout_with(int n, int m, int C, int S, int stage_bytes, int res_w,
 // The most resident rows that fit: all of W and A, then one A row fewer
 // at a time, then one W row fewer at a time. bytes > kSmemPerBlock where
 // not even the vectors and the ring fit.
-Layout layout(int n, int m, int C, int S, int stage_bytes) {
-  int res_w = ceil_div(n, C), res_a = ceil_div(m, C);
-  Layout L = layout_with(n, m, C, S, stage_bytes, res_w, res_a);
+Layout layout(int n, int m_d, int C, int S, int stage_bytes, bool box) {
+  int res_w = ceil_div(n, C), res_a = ceil_div(m_d, C);
+  Layout L = layout_with(n, m_d, C, S, stage_bytes, box, res_w, res_a);
   while (L.bytes > kSmemPerBlock && (res_a > 0 || res_w > 0)) {
     if (res_a > 0) {
       --res_a;
     } else {
       --res_w;
     }
-    L = layout_with(n, m, C, S, stage_bytes, res_w, res_a);
+    L = layout_with(n, m_d, C, S, stage_bytes, box, res_w, res_a);
   }
   return L;
 }
@@ -250,10 +263,12 @@ __device__ __forceinline__ void stream_rows(
   }
 }
 
+template <bool kBox>
 __global__ void __launch_bounds__(kBlock, 1)
 admm_chunk_split_kernel(const float* __restrict__ W,
                         const float* __restrict__ A,
                         const float* __restrict__ c0,
+                        const float* __restrict__ g,
                         const float* __restrict__ rho,
                         const float* __restrict__ lo,
                         const float* __restrict__ hi,
@@ -263,7 +278,8 @@ admm_chunk_split_kernel(const float* __restrict__ W,
                         const uint8_t* __restrict__ active,
                         float* __restrict__ x_out, float* __restrict__ z_out,
                         float* __restrict__ y_out, int n, int m, int n_iters,
-                        float alpha, float one_minus_alpha, Layout L) {
+                        float alpha, float one_minus_alpha, float sigma,
+                        Layout L) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -271,20 +287,24 @@ admm_chunk_split_kernel(const float* __restrict__ W,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int k_w = n + m;
+  // A's rows; with the box block, rows [m_d, m) of z, y, rho, l, u are
+  // the box rows, row m_d + i that of variable i
+  const int m_d = kBox ? m - n : m;
+  const int k_w = n + m_d;
   const int S = L.stages;
-  // this CTA's rows: W (and x, xt) rows [wr0, wr0 + nw), A (and z, y)
-  // rows [ar0, ar0 + na); the first rw and ra of them resident
+  // this CTA's rows: W (and x, xt, box) rows [wr0, wr0 + nw), A (and z,
+  // y) rows [ar0, ar0 + na); the first rw and ra of them resident
   const int wr0 = min(n, rank * L.rows_w);
   const int nw = min(n, wr0 + L.rows_w) - wr0;
-  const int ar0 = min(m, rank * L.rows_a);
-  const int na = min(m, ar0 + L.rows_a) - ar0;
+  const int ar0 = min(m_d, rank * L.rows_a);
+  const int na = min(m_d, ar0 + L.rows_a) - ar0;
   const int rw = min(nw, L.res_w);
   const int ra = min(na, L.res_a);
 
   x_in += (size_t)b * n;
   x_out += (size_t)b * n;
   c0 += (size_t)b * n;
+  if (kBox) g += (size_t)b * n;
   const size_t vm = (size_t)b * m;
   z_in += vm;
   y_in += vm;
@@ -295,7 +315,13 @@ admm_chunk_split_kernel(const float* __restrict__ W,
   hi += vm;
 
   if (active != nullptr && active[b] == 0) {
-    for (int i = tid; i < nw; i += kBlock) x_out[wr0 + i] = x_in[wr0 + i];
+    for (int i = tid; i < nw; i += kBlock) {
+      x_out[wr0 + i] = x_in[wr0 + i];
+      if (kBox) {
+        z_out[m_d + wr0 + i] = z_in[m_d + wr0 + i];
+        y_out[m_d + wr0 + i] = y_in[m_d + wr0 + i];
+      }
+    }
     for (int j = tid; j < na; j += kBlock) {
       z_out[ar0 + j] = z_in[ar0 + j];
       y_out[ar0 + j] = y_in[ar0 + j];
@@ -328,9 +354,18 @@ admm_chunk_split_kernel(const float* __restrict__ W,
   float* inv_r = r + L.rows_a;
   float* l = inv_r + L.rows_a;
   float* h = l + L.rows_a;
+  // the box rows of this CTA's W rows (kBox only)
+  float* gb = h + L.rows_a;
+  float* zb = gb + L.rows_w;
+  float* yb = zb + L.rows_w;
+  float* rb = yb + L.rows_w;
+  float* inv_rb = rb + L.rows_w;
+  float* lb = inv_rb + L.rows_w;
+  float* hb = lb + L.rows_w;
+  float* v_own = hb + L.rows_w;  // sigma x + g w of the row, to stack
 
   const float* W_src = W + ((size_t)b * n + wr0) * k_w;
-  const float* A_src = A + ((size_t)b * m + ar0) * n;
+  const float* A_src = A + ((size_t)b * m_d + ar0) * n;
   // resident slices congruent to their global addresses mod 16 bytes
   float* Ws = w_region + shift_of(W_src);
   float* As = a_region + shift_of(A_src);
@@ -369,11 +404,29 @@ admm_chunk_split_kernel(const float* __restrict__ W,
   }
 
   for (int i = tid; i < k_w; i += kBlock) {
-    stacked[i] = i < n ? x_in[i] : rho[i - n] * z_in[i - n] - y_in[i - n];
+    if (i >= n) {
+      stacked[i] = rho[i - n] * z_in[i - n] - y_in[i - n];
+    } else if (kBox) {
+      const int j = m_d + i;
+      stacked[i] = sigma * x_in[i] + g[i] * (rho[j] * z_in[j] - y_in[j]);
+    } else {
+      stacked[i] = x_in[i];
+    }
   }
   for (int i = tid; i < nw; i += kBlock) {
     cs[i] = c0[wr0 + i];
     x_own[i] = x_in[wr0 + i];
+    if (kBox) {
+      const int j = m_d + wr0 + i;
+      const float rj = rho[j];
+      gb[i] = g[wr0 + i];
+      zb[i] = z_in[j];
+      yb[i] = y_in[j];
+      rb[i] = rj;
+      inv_rb[i] = 1.0f / rj;
+      lb[i] = lo[j];
+      hb[i] = hi[j];
+    }
   }
   for (int j = tid; j < na; j += kBlock) {
     const float rj = rho[ar0 + j];
@@ -434,7 +487,17 @@ admm_chunk_split_kernel(const float* __restrict__ W,
     auto xt_row = [&](int i, float s) {
       const float xt_i = s + cs[i];
       if (lane < C) st_async(peer_xt + 4u * (wr0 + i), xt_i, peer_bar_xt);
-      if (lane == 0) x_own[i] = alpha * xt_i + one_minus_alpha * x_own[i];
+      if (lane == 0) {
+        x_own[i] = alpha * xt_i + one_minus_alpha * x_own[i];
+        if constexpr (kBox) {
+          const admm::RowUpdate u =
+              admm::row_update(gb[i] * xt_i, zb[i], yb[i], rb[i], inv_rb[i],
+                               lb[i], hb[i], alpha, one_minus_alpha);
+          zb[i] = u.z;
+          yb[i] = u.y;
+          v_own[i] = sigma * x_own[i] + gb[i] * u.w;
+        }
+      }
     };
     auto z_row = [&](int j, float zt) {
       const admm::RowUpdate u = admm::row_update(
@@ -475,12 +538,13 @@ admm_chunk_split_kernel(const float* __restrict__ W,
       gemv(As, n, xt, n, ra, warp, lane, z_row);
       stream_rows(tail_a, ra, ring, full, empty, filled, L, qa, S, tail_a.stages, xt,
                   n, warp, lane, z_row);
-      // x row i was relaxed by lane 0 of its owner warp in (a): warp
-      // i % kWarps owns row i, resident or streamed
+      // x row i (and its box row) was updated by lane 0 of its owner
+      // warp in (a): warp i % kWarps owns row i, resident or streamed
       __syncwarp();
       if (lane < C) {
+        const float* own = kBox ? v_own : x_own;
         for (int i = warp; i < nw; i += kWarps) {
-          st_async(peer_st + 4u * (wr0 + i), x_own[i], peer_bar_st);
+          st_async(peer_st + 4u * (wr0 + i), own[i], peer_bar_st);
         }
       }
     }
@@ -490,22 +554,31 @@ admm_chunk_split_kernel(const float* __restrict__ W,
   // every stage issued was consumed, every store into this CTA landed
   cluster.sync();
 
-  for (int i = tid; i < nw; i += kBlock) x_out[wr0 + i] = x_own[i];
+  for (int i = tid; i < nw; i += kBlock) {
+    x_out[wr0 + i] = x_own[i];
+    if (kBox) {
+      z_out[m_d + wr0 + i] = zb[i];
+      y_out[m_d + wr0 + i] = yb[i];
+    }
+  }
   for (int j = tid; j < na; j += kBlock) {
     z_out[ar0 + j] = z[j];
     y_out[ar0 + j] = y[j];
   }
 }
 
-// The layout of a launch, or cudaErrorInvalidValue where the arguments
-// are out of range or not even the vectors and the ring fit.
+// The layout and kernel of a launch, or cudaErrorInvalidValue where the
+// arguments are out of range or not even the vectors and the ring fit;
+// box != 0: A is the m - n rows of A_d and W has n + m - n columns.
 cudaError_t checked_layout(int n, int m, int C, int S, int stage_bytes,
-                           Layout* L) {
+                           int box, Layout* L, const void** fn) {
   if (C < 1 || C > kMaxCluster || S < 1 || S > kMaxStages ||
-      stage_bytes < 16 || n < 1 || m < 1) {
+      stage_bytes < 16 || n < 1 || m < 0 || (box ? m < n : m < 1)) {
     return cudaErrorInvalidValue;
   }
-  *L = layout(n, m, C, S, stage_bytes);
+  *L = layout(n, box ? m - n : m, C, S, stage_bytes, box != 0);
+  *fn = box ? (const void*)admm_chunk_split_kernel<true>
+            : (const void*)admm_chunk_split_kernel<false>;
   return L->bytes > kSmemPerBlock ? cudaErrorInvalidValue : cudaSuccess;
 }
 
@@ -515,15 +588,15 @@ cudaError_t checked_layout(int n, int m, int C, int S, int stage_bytes,
 // a ring of S stages of stage_bytes (at least one W row); above 232,448
 // where nothing fits.
 extern "C" long long admm_chunk_split_smem_bytes(int n, int m, int C, int S,
-                                                 int stage_bytes) {
-  return layout(n, m, C, S, stage_bytes).bytes;
+                                                 int stage_bytes, int box) {
+  return layout(n, box ? m - n : m, C, S, stage_bytes, box != 0).bytes;
 }
 
 // Rows of the W slice and of the A slice each CTA holds in shared memory.
 extern "C" void admm_chunk_split_resident_rows(int n, int m, int C, int S,
-                                               int stage_bytes, int* res_w,
-                                               int* res_a) {
-  const Layout L = layout(n, m, C, S, stage_bytes);
+                                               int stage_bytes, int box,
+                                               int* res_w, int* res_a) {
+  const Layout L = layout(n, box ? m - n : m, C, S, stage_bytes, box != 0);
   *res_w = L.res_w;
   *res_a = L.res_a;
 }
@@ -531,18 +604,18 @@ extern "C" void admm_chunk_split_resident_rows(int n, int m, int C, int S,
 // How many such clusters the card holds at once
 // (cudaOccupancyMaxActiveClusters) into *count; returns a CUDA error code.
 extern "C" int admm_chunk_split_max_active(int n, int m, int C, int S,
-                                           int stage_bytes, int* count) {
+                                           int stage_bytes, int box,
+                                           int* count) {
   Layout L;
-  cudaError_t err = checked_layout(n, m, C, S, stage_bytes, &L);
+  const void* fn;
+  cudaError_t err = checked_layout(n, m, C, S, stage_bytes, box, &L, &fn);
   if (err != cudaSuccess) return (int)err;
-  err = admm::configure_cluster((const void*)admm_chunk_split_kernel, C,
-                                L.bytes);
+  err = admm::configure_cluster(fn, C, L.bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   admm::cluster_launch_config(&cfg, &attr, 1, C, kBlock, L.bytes, nullptr);
-  err = cudaOccupancyMaxActiveClusters(
-      count, (const void*)admm_chunk_split_kernel, &cfg);
+  err = cudaOccupancyMaxActiveClusters(count, fn, &cfg);
   if (err != cudaSuccess) cudaGetLastError();
   return (int)err;
 }
@@ -550,25 +623,35 @@ extern "C" int admm_chunk_split_max_active(int n, int m, int C, int S,
 // Launch B clusters of C CTAs on `stream`; returns a CUDA error code (0
 // on success): that of a refused layout, attribute or launch, else
 // cudaGetLastError(). All pointers are device pointers; `active` may be
-// null.
+// null, and `g` is null for a dense operator (sigma is then unused).
 extern "C" int admm_chunk_split_launch(
-    const float* W, const float* A, const float* c0, const float* rho,
-    const float* lo, const float* hi, const float* x, const float* z,
-    const float* y, const uint8_t* active, float* x_out, float* z_out,
-    float* y_out, int B, int n, int m, int C, int S, int stage_bytes,
-    int n_iters, float alpha, float one_minus_alpha, void* stream) {
+    const float* W, const float* A, const float* c0, const float* g,
+    const float* rho, const float* lo, const float* hi, const float* x,
+    const float* z, const float* y, const uint8_t* active, float* x_out,
+    float* z_out, float* y_out, int B, int n, int m, int C, int S,
+    int stage_bytes, int n_iters, float alpha, float one_minus_alpha,
+    float sigma, void* stream) {
   Layout L;
-  cudaError_t err = checked_layout(n, m, C, S, stage_bytes, &L);
+  const void* fn;
+  const int box = g != nullptr;
+  cudaError_t err = checked_layout(n, m, C, S, stage_bytes, box, &L, &fn);
   if (err != cudaSuccess) return (int)err;
-  err = admm::configure_cluster((const void*)admm_chunk_split_kernel, C,
-                                L.bytes);
+  err = admm::configure_cluster(fn, C, L.bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   admm::cluster_launch_config(&cfg, &attr, B, C, kBlock, L.bytes, stream);
-  err = cudaLaunchKernelEx(&cfg, admm_chunk_split_kernel, W, A, c0, rho, lo,
-                           hi, x, z, y, active, x_out, z_out, y_out, n, m,
-                           n_iters, alpha, one_minus_alpha, L);
+  if (box) {
+    err = cudaLaunchKernelEx(&cfg, admm_chunk_split_kernel<true>, W, A, c0, g,
+                             rho, lo, hi, x, z, y, active, x_out, z_out,
+                             y_out, n, m, n_iters, alpha, one_minus_alpha,
+                             sigma, L);
+  } else {
+    err = cudaLaunchKernelEx(&cfg, admm_chunk_split_kernel<false>, W, A, c0,
+                             g, rho, lo, hi, x, z, y, active, x_out, z_out,
+                             y_out, n, m, n_iters, alpha, one_minus_alpha,
+                             sigma, L);
+  }
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
 }

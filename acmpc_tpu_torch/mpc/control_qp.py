@@ -18,7 +18,7 @@ import torch
 
 from acmpc_tpu_torch.dynamics.spatial_bicycle import SpatialBicycleModel, linearise
 from acmpc_tpu_torch.geometry.path import ReferencePath
-from acmpc_tpu_torch.qp.admm import ADMMConfig, QPSolution, solve_box_qp
+from acmpc_tpu_torch.qp.admm import ADMMConfig, QPSolution, _solve_box_qp
 
 _INF = 1e30
 NX = 3
@@ -107,6 +107,8 @@ def assemble_control_qp(
     l = torch.cat([eq_bound, x_min, u_lo.expand(*lead, NU * n)], dim=-1)
     u_bnd = torch.cat([eq_bound, x_max, u_hi.expand(*lead, NU * n)], dim=-1)
 
+    # the box block: the solver's callers here pass box=True, and its
+    # chunks take it as a diagonal (qp/admm._solve_box_qp)
     A_box = torch.eye(n_var, dtype=dtype, device=device).expand(*lead, n_var, n_var)
     A = torch.cat([A_eq, A_box], dim=-2)
 
@@ -162,4 +164,4 @@ def solve_control_qp(
     P, q, A, l, u = assemble_control_qp(
         path, spatial_state, model, step_cost, r_term, final_cost
     )
-    return solve_box_qp(P, q, A, l, u, cfg, x0=x0, y0=y0)
+    return _solve_box_qp(P, q, A, l, u, cfg, x0=x0, y0=y0, box=True)

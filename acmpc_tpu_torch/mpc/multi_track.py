@@ -21,7 +21,7 @@ from acmpc_tpu_torch.geometry.path import construct_waypoints
 from acmpc_tpu_torch.mpc.control_qp import assemble_control_qp
 from acmpc_tpu_torch.mpc.spatial_mpc import MPCConfig, MPCDiagnostics, MPCState, SpatialMPC
 from acmpc_tpu_torch.qp.admm import STATUS_MAX_ITER, STATUS_SOLVED
-from acmpc_tpu_torch.qp.batched import solve_box_qp_batched
+from acmpc_tpu_torch.qp.batched import _solve_box_qp_batched
 from acmpc_tpu_torch.qp.speed_profile import SpeedProfileSolution, _min_plus_scan
 
 _EPS = 1e-12
@@ -150,7 +150,7 @@ class MultiTrackMPC:
             u_min=torch.stack([p["v_min"], -kappa_max], dim=-1),
             u_max=torch.stack([p["v_max"], kappa_max], dim=-1),
         )
-        sol = solve_box_qp_batched(*qp, mpc.admm, x0=states.qp_x, y0=states.qp_y)
+        sol = _solve_box_qp_batched(*qp, mpc.admm, x0=states.qp_x, y0=states.qp_y, box=True)
         return mpc._extract(states, path, speed_sol, sol)
 
     def get_control(

@@ -25,8 +25,8 @@ from acmpc_tpu_torch.mpc.control_qp import (
     assemble_control_qp,
     control_qp_sizes,
 )
-from acmpc_tpu_torch.qp.admm import ADMMConfig, QPSolution, solve_box_qp
-from acmpc_tpu_torch.qp.batched import solve_box_qp_batched
+from acmpc_tpu_torch.qp.admm import ADMMConfig, QPSolution, _solve_box_qp
+from acmpc_tpu_torch.qp.batched import _solve_box_qp_batched
 from acmpc_tpu_torch.qp.speed_profile import (
     SpeedProfileConstraints,
     SpeedProfileSolution,
@@ -308,7 +308,7 @@ class SpatialMPC:
         path, speed_sol, qp = self._prepare(
             state, reference_path, v_max_runtime, is_localised, offset
         )
-        control_sol = solve_box_qp(*qp, self.admm, x0=state.qp_x, y0=state.qp_y)
+        control_sol = _solve_box_qp(*qp, self.admm, x0=state.qp_x, y0=state.qp_y, box=True)
         return self._extract(state, path, speed_sol, control_sol)
 
     def batched_get_control(
@@ -323,7 +323,7 @@ class SpatialMPC:
         the counterpart of ``jit(vmap(get_control))``. ``states`` and
         ``refs`` (B, H, 3) carry a leading scenario axis; the other
         arguments are (B,) or one value for every scenario. The control
-        QPs go through ``solve_box_qp`` over the scenario axis (one chunk
+        QPs go through the QP engine over the scenario axis (one chunk
         launch for every scenario, each with its own iteration count and
         status; scenarios that are done skip the chunk)."""
         refs = self._tensor(refs)
@@ -345,7 +345,7 @@ class SpatialMPC:
             lanes(is_localised, torch.bool),
             lanes(offset, self.dtype),
         )
-        control_sol = solve_box_qp(*qp, self.admm, x0=states.qp_x, y0=states.qp_y)
+        control_sol = _solve_box_qp(*qp, self.admm, x0=states.qp_x, y0=states.qp_y, box=True)
         return self._extract(states, path, speed_sol, control_sol)
 
     def batched_get_control_fused(
@@ -367,8 +367,8 @@ class SpatialMPC:
         path, speed_sol, qp = self._prepare(
             states, refs, self._tensor(v_max), is_localised, offsets
         )
-        control_sol = solve_box_qp_batched(
-            *qp, self.admm, x0=states.qp_x, y0=states.qp_y
+        control_sol = _solve_box_qp_batched(
+            *qp, self.admm, x0=states.qp_x, y0=states.qp_y, box=True
         )
         return self._extract(states, path, speed_sol, control_sol)
 

@@ -14,6 +14,13 @@ on the card, its plain PyTorch version on the CPU), also for a single
 scenario. The convergence loop runs on the host: one device-to-host read
 of the ``done`` flag per chunk.
 
+Callers that build A as ``[A_d; I]`` (its last n rows the identity over
+the variables: the control QP, the raceline) solve through
+:func:`_solve_box_qp` with ``box=True``, and the chunks then take the
+box block as a diagonal (``_box_block``, ``ops/admm_chunk.py``): the same
+iterations on about half the operator's bytes. ``solve_box_qp`` knows
+nothing of the layout of the A it is given and takes the dense operator.
+
 ``solve_box_qp`` also takes a leading scenario axis, the counterpart of
 ``jax.vmap(solve_box_qp)`` and of the merge rule that sends the vmapped
 solve to the fused kernel: one chunk launch covers every lane, and each
@@ -157,12 +164,32 @@ def _factor(P, A, rho_vec, sigma):
     return M
 
 
-def _build_operator(K_inv, As, qs, sigma):
+def _build_operator(K_inv, As, qs, sigma, A_d=None):
     """Stacked x-update operator W = [sigma Kinv | Kinv A'] (..., n, n+m)
-    and constant c0 = -Kinv q, built once per factorisation."""
-    W = torch.cat([sigma * K_inv, K_inv @ As.transpose(-1, -2)], dim=-1)
+    and constant c0 = -Kinv q, built once per factorisation. With the box
+    block (``A_d``, the rows of A_s before it): W = [Kinv | Kinv A_d']
+    (..., n, n + m_d), sigma and the block's diagonal applied in the
+    chunk."""
+    if A_d is None:
+        W = torch.cat([sigma * K_inv, K_inv @ As.transpose(-1, -2)], dim=-1)
+    else:
+        W = torch.cat([K_inv, K_inv @ A_d.transpose(-1, -2)], dim=-1)
     c0 = -(K_inv @ qs[..., None])[..., 0]
     return W.contiguous(), c0
+
+
+def _box_block(As, box: bool):
+    """(A_d, g) of a scaled A_s = [A_d; diag(g)] whose caller built A as
+    [A_d; I], its last n rows the identity over the n variables; None for
+    a dense operator (``box`` False). Ruiz scaling multiplies A by
+    diagonals, so the block stays diagonal: g is read off it, the floats
+    the dense operator would hold."""
+    if not box:
+        return None
+    n = As.shape[-1]
+    m_d = As.shape[-2] - n
+    g = torch.diagonal(As[..., m_d:, :], dim1=-2, dim2=-1)
+    return As[..., :m_d, :].contiguous(), g.contiguous()
 
 
 def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -256,12 +283,29 @@ def solve_box_qp(
     the solve of scenario b alone (see :func:`_solve_lanes`).
     Use +/-inf (or +/-1e30) for loose bounds.
     """
+    return _solve_box_qp(P, q, A, l, u, cfg, x0, y0, box=False)
+
+
+def _solve_box_qp(P, q, A, l, u, cfg=ADMMConfig(), x0=None, y0=None, *, box: bool):
+    """:func:`solve_box_qp` for a caller that knows A's layout: with
+    ``box`` its last n rows are the identity over the n variables (A =
+    [A_d; I]), and the chunks take that block as a diagonal."""
     solve = _solve_lanes if q.dim() == 2 else _solve_one
-    return solve(P, q, A, l, u, cfg, x0, y0)[0]
+    return solve(P, q, A, l, u, cfg, x0, y0, box)[0]
 
 
-def _solve_one(P, q, A, l, u, cfg, x0, y0) -> tuple[QPSolution, torch.Tensor]:
-    """One QP; returns the solution and the rho it ends on."""
+def _chunk_operator(As, box: bool):
+    """(the A a chunk takes, A_d, g): (A_s, None, None) for a dense
+    operator, (A_d, A_d, g) with the box block (:func:`_box_block`)."""
+    block = _box_block(As, box)
+    if block is None:
+        return As, None, None
+    return block[0], *block
+
+
+def _solve_one(P, q, A, l, u, cfg, x0, y0, box=False) -> tuple[QPSolution, torch.Tensor]:
+    """One QP; returns the solution and the rho it ends on. ``box``: see
+    :func:`_solve_box_qp`."""
     dtype = q.dtype
     n = q.shape[-1]
     m = l.shape[-1]
@@ -274,6 +318,8 @@ def _solve_one(P, q, A, l, u, cfg, x0, y0) -> tuple[QPSolution, torch.Tensor]:
     us = e * u
     As = As.contiguous()
     sigma = cfg.sigma
+    A_chunk, A_d, g = _chunk_operator(As, box)
+    box_kw = {} if g is None else {"g": g[None], "sigma": sigma}
 
     x = torch.zeros(n, dtype=dtype, device=q.device) if x0 is None else x0 / d
     y = torch.zeros(m, dtype=dtype, device=q.device) if y0 is None else c * y0 / e
@@ -315,14 +361,14 @@ def _solve_one(P, q, A, l, u, cfg, x0, y0) -> tuple[QPSolution, torch.Tensor]:
     def chunk(x, z, y, rho_vec, op, n_iters):
         W, c0 = op
         xo, zo, yo = admm_chunk(
-            W[None], As[None], c0[None], rho_vec[None], ls[None], us[None],
-            x[None], z[None], y[None], n_iters=n_iters, alpha=cfg.alpha,
+            W[None], A_chunk[None], c0[None], rho_vec[None], ls[None], us[None],
+            x[None], z[None], y[None], n_iters=n_iters, alpha=cfg.alpha, **box_kw,
         )
         return xo[0], zo[0], yo[0]
 
     def operator(rho):
         rho_vec = _rho_vector(rho, ls, us)
-        return rho_vec, _build_operator(_factor(Ps, As, rho_vec, sigma), As, qs, sigma)
+        return rho_vec, _build_operator(_factor(Ps, As, rho_vec, sigma), As, qs, sigma, A_d)
 
     rho = torch.tensor(cfg.rho, dtype=dtype, device=q.device)
     rho_vec, op = operator(rho)
@@ -383,10 +429,10 @@ def _solve_one(P, q, A, l, u, cfg, x0, y0) -> tuple[QPSolution, torch.Tensor]:
     ), rho
 
 
-def _solve_lanes(P, q, A, l, u, cfg, x0, y0) -> tuple[QPSolution, torch.Tensor]:
+def _solve_lanes(P, q, A, l, u, cfg, x0, y0, box=False) -> tuple[QPSolution, torch.Tensor]:
     """B QPs along the leading axis, each lane as :func:`_solve_one`
     solves it alone; returns the solution and the rho (B,) each lane ends
-    on.
+    on. ``box``: see :func:`_solve_box_qp`.
 
     Scaling, factorisation and the residual checks are batched tensor
     code reduced over each lane's own axis. Every chunk is one
@@ -410,6 +456,10 @@ def _solve_lanes(P, q, A, l, u, cfg, x0, y0) -> tuple[QPSolution, torch.Tensor]:
     us = e * u
     As = As.contiguous()
     sigma = cfg.sigma
+    A_chunk, A_d, g = _chunk_operator(As, box)
+    box_kw = {} if g is None else {"g": g, "sigma": sigma}
+    # the box block's A_d rides along lane by lane
+    lane_A_d = () if A_d is None else (A_d,)
 
     x = torch.zeros(B, n, dtype=dtype, device=device) if x0 is None else x0 / d
     y = (
@@ -419,17 +469,17 @@ def _solve_lanes(P, q, A, l, u, cfg, x0, y0) -> tuple[QPSolution, torch.Tensor]:
     )
     z = torch.clamp(_mv(As, x), ls, us)
 
-    def operator(Ps, As, qs, rho_vec):
-        return _build_operator(_factor(Ps, As, rho_vec, sigma), As, qs, sigma)
+    def operator(Ps, As, qs, rho_vec, A_d=None):
+        return _build_operator(_factor(Ps, As, rho_vec, sigma), As, qs, sigma, A_d)
 
     rho = torch.full((B,), cfg.rho, dtype=dtype, device=device)
     rho_vec = _rho_vector(rho[:, None], ls, us)
-    W, c0 = _lanewise(operator, Ps, As, qs, rho_vec)
+    W, c0 = _lanewise(operator, Ps, As, qs, rho_vec, *lane_A_d)
 
     def chunk(x, z, y, n_iters, active=None):
         return admm_chunk(
-            W, As, c0, rho_vec, ls, us, x, z, y,
-            n_iters=n_iters, alpha=cfg.alpha, active=active,
+            W, A_chunk, c0, rho_vec, ls, us, x, z, y,
+            n_iters=n_iters, alpha=cfg.alpha, active=active, **box_kw,
         )
 
     def residuals(x, y, z):
@@ -493,7 +543,9 @@ def _solve_lanes(P, q, A, l, u, cfg, x0, y0) -> tuple[QPSolution, torch.Tensor]:
             lanes = torch.nonzero(refactor)[:, 0]  # the second read
             rho[lanes] = torch.clamp(rho[lanes] * ratio[lanes], 1e-6, 1e6)
             rv = _rho_vector(rho[lanes, None], ls[lanes], us[lanes])
-            W_l, c0_l = _lanewise(operator, Ps[lanes], As[lanes], qs[lanes], rv)
+            W_l, c0_l = _lanewise(
+                operator, Ps[lanes], As[lanes], qs[lanes], rv, *(a[lanes] for a in lane_A_d)
+            )
             rho_vec[lanes] = rv
             W[lanes] = W_l
             c0[lanes] = c0_l

@@ -8,7 +8,9 @@ iterates while the rest keep iterating.
 
 Restrictions against the general solver: fixed rho (no adaptive
 refactorisation; the MPC configuration runs fixed), primal-infeasibility
-certificates and RTI mode supported.
+certificates and RTI mode supported. Callers that build A as [A_d; I]
+solve through :func:`_solve_box_qp_batched` with ``box=True`` (see
+``qp/admm.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from acmpc_tpu_torch.qp.admm import (
     ADMMConfig,
     QPSolution,
     _build_operator,
+    _chunk_operator,
     _factor,
     _lane_certificate,
     _lane_residuals,
@@ -45,6 +48,12 @@ def solve_box_qp_batched(
     y0: torch.Tensor | None = None,
 ) -> QPSolution:
     """Solve B box QPs at once on the device of the inputs."""
+    return _solve_box_qp_batched(P, q, A, l, u, cfg, x0, y0, box=False)
+
+
+def _solve_box_qp_batched(P, q, A, l, u, cfg=ADMMConfig(), x0=None, y0=None, *, box: bool):
+    """:func:`solve_box_qp_batched` for a caller that knows A's layout:
+    with ``box`` its last n rows are the identity over the n variables."""
     if cfg.adaptive_rho:
         raise ValueError(
             "the batched solver runs fixed rho; use solve_box_qp for adaptive rho"
@@ -60,8 +69,10 @@ def solve_box_qp_batched(
     ls = e * l
     us = e * u
     As = As.contiguous()
+    A_chunk, A_d, g = _chunk_operator(As, box)
+    box_kw = {} if g is None else {"g": g, "sigma": cfg.sigma}
     rho_vec = _rho_vector(torch.tensor(cfg.rho, dtype=dtype, device=device), ls, us)
-    W, c0 = _build_operator(_factor(Ps, As, rho_vec, cfg.sigma), As, qs, cfg.sigma)
+    W, c0 = _build_operator(_factor(Ps, As, rho_vec, cfg.sigma), As, qs, cfg.sigma, A_d)
 
     x = torch.zeros(B, n, dtype=dtype, device=device) if x0 is None else x0 / d
     y = (
@@ -73,8 +84,8 @@ def solve_box_qp_batched(
 
     def chunk(x, z, y, n_iters, active=None):
         return admm_chunk(
-            W, As, c0, rho_vec, ls, us, x, z, y,
-            n_iters=n_iters, alpha=cfg.alpha, active=active,
+            W, A_chunk, c0, rho_vec, ls, us, x, z, y,
+            n_iters=n_iters, alpha=cfg.alpha, active=active, **box_kw,
         )
 
     def residuals(x, y, z):

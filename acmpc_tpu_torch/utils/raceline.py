@@ -4,9 +4,10 @@ Counterpart of ``acmpc_tpu/utils/raceline.py``: the raceline is
 centre + alpha * normal with alpha box-bounded by the drivable corridor;
 the signed Menger curvature is linearised in alpha and its squared norm
 minimised by the package's own ADMM box-QP engine, re-linearising a few
-times. Each QP has n = m = N (the track's points) and A = I, so on the
-card every chunk of its ADMM iterations runs the split kernel
-(``ops/admm_chunk.py``: no cluster holds an operator of N above ~190).
+times. Each QP has n = m = N (the track's points) and A = I, the box
+block alone, which the chunks take as a diagonal: the operator is K^-1
+(N, N), which a cluster holds up to N = 942 (the CLI's 600-point cap),
+and the split kernel streams beyond (``ops/admm_chunk.py``).
 
 The Jacobian J = d kappa / d alpha comes from ``torch.func.jacfwd``
 (dense (N, N), banded in fact: each curvature sees three points).
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from acmpc_tpu_torch.device import resolve_device
-from acmpc_tpu_torch.qp.admm import ADMMConfig, QPSolution, solve_box_qp
+from acmpc_tpu_torch.qp.admm import ADMMConfig, QPSolution, _solve_box_qp
 
 # the QP engine's budget for each re-linearisation, as in the JAX package
 RACELINE_ADMM = ADMMConfig(max_iter=2000)
@@ -95,27 +96,35 @@ def solve_raceline(
     normals = _unit_normals(centre)
     half = torch.tensor(np.asarray(half_width, np.float32), device=device)
     bound = torch.clamp(half - margin, min=0.0) * torch.ones(n, device=device)
-
-    def kappa_of(alpha):
-        return offset_curvature(centre, alpha, normals)
-
-    jacobian = torch.func.jacfwd(kappa_of)
     alpha = torch.zeros(n, device=device)
-    eye = torch.eye(n, device=device)
     solutions: list[QPSolution] = []
     for _ in range(n_iterations):
-        kappa0 = kappa_of(alpha)
-        J = jacobian(alpha)
-        P = 2.0 * (J.T @ J) + regularisation * eye
-        q = 2.0 * (J.T @ (kappa0 - J @ alpha))
-        # curvatures are ~1e-3-scale, far below the solver's absolute
-        # tolerance; rescale the objective (argmin-invariant) so the
-        # termination criteria see an O(1) problem
-        s = 1.0 / torch.clamp(torch.max(torch.abs(q)), min=1e-12)
-        sol = solve_box_qp(s * P, s * q, eye, -bound, bound, RACELINE_ADMM)
+        qp = raceline_qp(centre, normals, bound, alpha, regularisation)
+        sol = _solve_box_qp(*qp, RACELINE_ADMM, box=True)
         solutions.append(sol)
         alpha = sol.x
     return Raceline(centre + alpha[:, None] * normals, alpha, tuple(solutions))
+
+
+def raceline_qp(centre, normals, bound, alpha, regularisation: float = 1e-8):
+    """The box QP (P, q, A, l, u) of one re-linearisation at ``alpha``:
+    min ||kappa0 + J (a - alpha)||^2 over the offsets a, |a| <= bound, with
+    A = I (the box block alone)."""
+    n = centre.shape[0]
+
+    def kappa_of(a):
+        return offset_curvature(centre, a, normals)
+
+    kappa0 = kappa_of(alpha)
+    J = torch.func.jacfwd(kappa_of)(alpha)
+    eye = torch.eye(n, device=centre.device)
+    P = 2.0 * (J.T @ J) + regularisation * eye
+    q = 2.0 * (J.T @ (kappa0 - J @ alpha))
+    # curvatures are ~1e-3-scale, far below the solver's absolute
+    # tolerance; rescale the objective (argmin-invariant) so the
+    # termination criteria see an O(1) problem
+    s = 1.0 / torch.clamp(torch.max(torch.abs(q)), min=1e-12)
+    return s * P, s * q, eye, -bound, bound
 
 
 def calculate_raceline(

@@ -17,7 +17,8 @@ Phases, each printing one line:
      build/torch_kernels/, and prints what ptxas reports of each kernel
      (registers, spills);
   3. kernel: each variant against the plain PyTorch version on random
-     operators, with and without a mixed ``active`` mask: the cluster
+     operators, with and without a mixed ``active`` mask. On dense
+     operators: the cluster
      kernel at the horizon-50 shapes (n = 248, m = 398), B in {1, 7, 256};
      the split kernel at the horizon-100 shapes (n = 498, m = 798), B in
      {1, 8}. Times, bound and plain time at B in {1, 256} (horizon 50) and
@@ -27,11 +28,19 @@ Phases, each printing one line:
      split kernel's C from 8 to 16 at B = 8 and {8, 16} at B = 1; for
      every C, the wrapper's shared-memory layout against the library's,
      and for every C that fits, its shared bytes per CTA and how many such
-     clusters the card holds; and the raceline's chunk shapes, n = m =
-     586 (the raceline CLI's cap on monza) and n = m = 1,953 (monza at the
-     stride of the shipped racelines), B = 1, through the split kernel:
-     the layout against the library's, kernel against plain, times and
-     bound;
+     clusters the card holds. On the box block (the main path's QPs, whose A is [A_d; I]:
+     the control QP on ramp windows, the raceline's first QP; the operator
+     W_s = [K^-1 | K^-1 A_d'], A_d and g): each planned variant against
+     both plain versions (the box block's, and the dense one on the dense
+     operator of the same QP) at horizon 50 (B 1, 7, 256; the cluster
+     kernel at C = 8 or 3), horizon 100 (B 1, 8; cluster, C = 10) and
+     the raceline's 586 (cluster; the raceline CLI's cap on monza) and
+     1,953 points (split; monza at the stride of the shipped racelines),
+     with its ms,
+     the plain version's, both bounds (the dense operator's and the box
+     block's), both operators' bytes, the dense kernel's ms on the dense
+     operator of the same QP, and the other cluster sizes; every box
+     layout against the library's, with the clusters the card holds;
   4. main path: monza racing config, horizon 50, B = 256 windows of a
      difficulty ramp through ``SpatialMPC.batched_get_control_fused``:
      one cold step with converged-scenario skipping on, then five
@@ -43,12 +52,12 @@ Phases, each printing one line:
      the cluster kernel), and the warm-started B = 1 step time;
   6. mapping control: monza's mapping config (horizon 100), B = 8 gentle
      windows of the ramp: one cold step with skipping on and five warm
-     steps, all solved, through both split kernel variants; 2 scenarios
-     agree with the plain path on the CPU;
+     steps, all solved, through both box-block cluster variants (C = 10);
+     2 scenarios agree with the plain path on the CPU;
   7. mapping get_control: the mapping controller as the agent runs it,
      ``get_control`` at B = 1 on the gentlest window: one cold step and
-     five warm steps, all solved, through the split kernel; the cold step
-     agrees with the port on the CPU;
+     five warm steps, all solved, through the box-block cluster kernel;
+     the cold step agrees with the port on the CPU;
   8. closed-loop lap sweep: the repository's closed-loop operating point
      (horizon 50, a real-time-iteration budget of 50 ADMM iterations per
      solve) on the shipped 22 km synth_nordschleife map, B = 256 perturbed
@@ -105,23 +114,24 @@ Phases, each printing one line:
      freshness every 4th frame, with tests/test_agent_e2e.py's gates
      (first command within 180 s, > 50 m, off-track < 5 m, > 10 m/s at
      the end, no thread exception, a teardown that joins); at least as
-     many cluster launches as racing command sets, at least one
-     chain-edges launch, no split launch; 20 more frames under
+     many box-block cluster launches as racing command sets, at least one
+     chain-edges launch, no other chunk kernel; 20 more frames under
      ``torch.profiler``. (b) mapping then racing: one mapping lap of
      tests/test_mapping_e2e.py's ~330 m loop with oracle perception at
      320x192 and the mapping MPC at horizon 100, the map built and saved
      (median centre error < 2.5 m, > 0.6 of the true length), the switch
      to the racing MPC at horizon 50 and 100 racing frames (off-track
-     < 5 m, > 20 m); the split kernel launched before the switch, the
-     cluster kernel after it.
+     < 5 m, > 20 m); the box-block cluster kernel launched before the
+     switch (C = 10) and after it, and no other chunk kernel.
   13. the offline tools and the dashboard: (a) the minimum-curvature
      raceline (``utils/raceline.py``) on each of the seven shipped maps at
      the raceline CLI's 600-point cap and on monza at 1,953 points, each
      held against the JAX package's line in
      tests/fixtures/torch_raceline_jax.npz with tests/test_torch_raceline.py's
      tolerances (the curvature profile and its squared sum, alpha within
-     the margin, the bound), every QP solved, and every chunk a launch of the split
-     kernel and of no other variant; ms per raceline and chunks per QP;
+     the margin, the bound), every QP solved, and every chunk a launch of the
+     planned box-block kernel (a cluster up to 942 points, the split kernel at
+     1,953) and of no other variant; ms per raceline and chunks per QP;
      (b) the Pacejka model's 40-step rollouts and curve fits on the card
      against the CPU; (c) phase 12's racing run (monza, 1280x736 bf16,
      500 particles) for 60 frames with the dashboard served and a client
@@ -171,7 +181,7 @@ Phases, each printing one line:
      a step; (b) 64 random QPs at n = 248, m = 398 with adaptive rho,
      each lane against its unbatched solve on the card (status equal, x
      within 2e-2 of the scale), the lanes that refactored; (c) the mapping
-     control (horizon 100) at B = 8 on the split kernel, every lane
+     control (horizon 100) at B = 8 on the box-block cluster kernel, every lane
      against ``get_control``; (d) ``LapSweep.run`` on phase 8's grid
      against ``run_fused`` (metrics within 5e-3, ``solved`` equal, one
      cluster launch a step), closed-loop solves/s of both, timed in
@@ -258,7 +268,7 @@ LOC_SEEDS = (0, 1, 2)
 LOC_SYNC_PAIRS = 50
 # the racing agent (phase 12): frames of the racing run
 AGENT_FRAMES = 200
-# phase 13: the raceline's chunk shapes (n = m), its JAX fixture and the
+# phase 13: the raceline's JAX fixture and the
 # tolerances of tests/test_torch_raceline.py (the QPs' stopping rule pins
 # the curvature profile, not alpha: each point's curvature within a tenth
 # of the largest of JAX's line, the summed squared curvature within 5e-3,
@@ -267,7 +277,6 @@ AGENT_FRAMES = 200
 # Pacejka model (fp32 transcendentals and 40 Euler steps); the dashboard
 # run's frames; the localisation CLI's recording (the fewest control
 # steps of the committed ones)
-RACELINE_SHAPES = (586, 1953)
 RACELINE_FIXTURE = ROOT / "tests" / "fixtures" / "torch_raceline_jax.npz"
 RACELINE_MARGIN = 1.0
 RACELINE_ALPHA_TOL, RACELINE_KAPPA_SHARE = RACELINE_MARGIN, 0.1
@@ -364,14 +373,21 @@ def time_cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def chunk_bound(n: int, m: int, n_iters: int, n_active: int, batch: int, masked: bool):
+def chunk_bound(
+    n: int, m: int, n_iters: int, n_active: int, batch: int, masked: bool, n_b: int = 0
+):
     """Least time of one chunk call on an H100: each input read once and
     each output written once, against the flops of the active scenarios'
-    iterations. Returns (ms, "bytes" | "operations")."""
-    operator = 4 * (n * (n + m) + m * n + n + 3 * m)  # W, A, c0, rho, l, u
+    iterations. With the box block (n_b = n of the m rows) what these
+    inputs need: W_s (n, n + m_d), A_d (m_d, n) and g in place of the
+    dense W and A, and the block's products by g. Returns (ms, "bytes" |
+    "operations")."""
+    m_d = m - n_b
+    # W, A[, g], c0, rho, l, u
+    operator = 4 * (n * (n + m_d) + m_d * n + (n if n_b else 0) + n + 3 * m)
     iterates = 4 * (n + 2 * m)  # x, z, y
     n_bytes = n_active * operator + 2 * batch * iterates + (batch if masked else 0)
-    per_iter = 2 * n * (n + m) + 2 * m * n + 12 * m + 4 * n
+    per_iter = 2 * n * (n + m_d) + 2 * m_d * n + 12 * m + 4 * n + (4 * n if n_b else 0)
     flops = n_active * n_iters * per_iter
     t_bytes, t_flops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations")
@@ -413,6 +429,66 @@ def random_chunk_inputs(batch: int, n: int, m: int, seed: int, device):
     z = torch.clamp((A @ x[..., None])[..., 0], lo, hi)
     y = 0.1 * torch.randn(batch, m, generator=g, device=device)
     return W, A.contiguous(), c0, rho, lo, hi, x, z, y
+
+
+def box_chunk_inputs(P, q, A, l, u, sigma: float = 1e-5):
+    """The chunk inputs of B QPs whose A is [A_d; I], as the solver makes
+    them (bounds clamped, Ruiz scaling, rho 0.1 by constraint class, the
+    KKT inverse), from a cold start (x = 0, y = 0): (the dense operator's
+    inputs, the box block's, its keywords g and sigma)."""
+    import torch
+
+    from acmpc_tpu_torch.qp.admm import (
+        _INF,
+        _box_block,
+        _build_operator,
+        _factor,
+        _rho_vector,
+        _ruiz_equilibrate,
+    )
+
+    Ps, qs, As, _, _, e = _ruiz_equilibrate(P, q, A, 10)
+    ls, us = e * torch.clamp(l, -_INF, _INF), e * torch.clamp(u, -_INF, _INF)
+    rho = _rho_vector(torch.tensor(0.1, device=q.device), ls, us)
+    K_inv = _factor(Ps, As, rho, sigma)
+    W, c0 = _build_operator(K_inv, As, qs, sigma)
+    As_d, g = _box_block(As, True)
+    W_s, _ = _build_operator(K_inv, As, qs, sigma, As_d)
+    x = torch.zeros_like(qs)
+    z = torch.clamp((As @ x[..., None])[..., 0], ls, us)
+    y = torch.zeros_like(ls)
+    vectors = (c0, rho, ls, us, x, z, y)
+    return (W, As, *vectors), (W_s, As_d.contiguous(), *vectors), {"g": g, "sigma": sigma}
+
+
+def box_qps(n: int, m: int, batch: int):
+    """The main path's QPs at (n, m), (P, q, A, l, u) on the card: monza's
+    racing control (horizon 50) on ``batch`` windows of the difficulty
+    ramp by stride, or its mapping control (horizon 100) on the gentlest;
+    for n = m, monza's raceline QP at its first re-linearisation (586
+    points at the raceline CLI's cap, 1,953 at stride 6; B = 1)."""
+    import torch
+
+    if n == m:
+        from acmpc_tpu_torch.utils.raceline import _unit_normals, raceline_qp
+
+        key = {586: "monza/cap", 1953: "monza/stride6"}[n]
+        centre, half = _raceline_case(key, np.load(RACELINE_FIXTURE))
+        centre = torch.tensor(centre, dtype=torch.float32, device=DEVICE)
+        bound = torch.clamp(torch.tensor(half, dtype=torch.float32, device=DEVICE) - RACELINE_MARGIN, min=0.0)
+        qp = raceline_qp(centre, _unit_normals(centre), bound, torch.zeros(n, device=DEVICE))
+        return tuple(t.expand(batch, *t.shape) for t in qp)
+    mode = "racing" if (n, m) == H50 else "mapping"
+    mpc = make_mpc("monza", DEVICE, mode=mode)
+    ramp = difficulty_ramp(mpc.config.horizon, BATCH)
+    refs = torch.as_tensor(ramp[:: BATCH // batch][:batch] if mode == "racing" else ramp[:batch], device=DEVICE)
+    full = lambda v, dtype=torch.float32: torch.full((batch,), v, dtype=dtype, device=DEVICE)  # noqa: E731
+    _, _, qp = mpc._prepare(
+        mpc.initial_state(batch), refs, full(mpc.config.constraints.v_max), full(False, torch.bool), full(0.0)
+    )
+    if tuple(qp[2].shape) != (batch, m, n):
+        raise RuntimeError(f"the {mode} QP is {tuple(qp[2].shape)}, not ({batch}, {m}, {n})")
+    return qp
 
 
 def phase_device() -> dict:
@@ -486,48 +562,71 @@ def compare(got, want, label: str) -> float:
     return err
 
 
-def _layouts(dev) -> dict:
-    """Every cluster size at horizon 50 (cluster kernel) and horizon 100
-    (split kernel): the wrapper's layout held against the library's, and
-    for every size that fits, its shared bytes per CTA and how many such
-    clusters the card holds at once."""
+def _cluster_layouts(dev, n: int, m: int, n_b: int) -> dict:
+    """Every cluster size at (n, m) with n_b box rows: the wrapper's layout
+    held against the library's, and for every size that fits, its shared
+    bytes per CTA and how many such clusters the card holds at once."""
+    import acmpc_tpu_torch.ops.admm_chunk as ops
+
+    lib = ops._libraries(dev)["cluster"]
+    out = {}
+    for C in range(1, ops.MAX_CLUSTER + 1):
+        smem = ops.cluster_smem_bytes(n, m, C, n_b)
+        if lib.admm_chunk_cluster_smem_bytes(n, m, C, int(bool(n_b))) != smem:
+            raise RuntimeError(f"n={n}, m={m}, n_b={n_b}, C={C}: the wrapper's cluster layout is not the kernel's")
+        if smem <= ops.SMEM_PER_BLOCK:
+            plan = ops.cluster_plan(n, m, C, n_b)
+            out[C] = {"smem_bytes": smem, "max_active_clusters": ops.max_active_clusters(plan, n, m, dev)}
+    return out
+
+
+def _split_layout_facts(dev, n: int, m: int, C: int, n_b: int = 0) -> dict:
+    """The split plan's layout at C CTAs held against the library's; for a
+    layout that fits, its resident rows, the bytes a CTA streams an
+    iteration and how many such clusters the card holds at once."""
     import ctypes
 
     import acmpc_tpu_torch.ops.admm_chunk as ops
 
-    libs = ops._libraries(dev)
-    out = {"clusters_h50": {}, "splits_h100": {}}
-    n, m = H50
-    for C in range(1, ops.MAX_CLUSTER + 1):
-        smem = ops.cluster_smem_bytes(n, m, C)
-        if libs["cluster"].admm_chunk_cluster_smem_bytes(n, m, C) != smem:
-            raise RuntimeError(f"C={C}: the wrapper's cluster layout is not the kernel's")
-        if smem <= ops.SMEM_PER_BLOCK:
-            plan = ops.ChunkPlan("cluster", C, smem)
-            out["clusters_h50"][C] = {
-                "smem_bytes": smem,
-                "max_active_clusters": ops.max_active_clusters(plan, n, m, dev),
-            }
-    n, m = H100
-    for C in range(1, ops.MAX_CLUSTER + 1):
-        plan = ops.split_plan(n, m, C)
-        lay = ops.split_layout(n, m, C)
-        res_w, res_a = ctypes.c_int(), ctypes.c_int()
-        libs["split"].admm_chunk_split_resident_rows(
-            n, m, C, plan.stages, plan.stage_bytes, ctypes.byref(res_w), ctypes.byref(res_a)
-        )
-        lib_bytes = libs["split"].admm_chunk_split_smem_bytes(n, m, C, plan.stages, plan.stage_bytes)
-        if (lib_bytes, res_w.value, res_a.value) != (lay.bytes, lay.res_w, lay.res_a):
-            raise RuntimeError(f"C={C}: the wrapper's split layout is not the kernel's")
-        if lay.bytes <= ops.SMEM_PER_BLOCK:
-            streamed = 4 * ((lay.rows_w - lay.res_w) * (n + m) + (lay.rows_a - lay.res_a) * n)
-            out["splits_h100"][C] = {
-                "smem_bytes": lay.bytes,
-                "resident_rows_w_a": [lay.res_w, lay.res_a],
-                "rows_w_a": [lay.rows_w, lay.rows_a],
-                "streamed_bytes_per_cta_iter": streamed,
-                "max_active_clusters": ops.max_active_clusters(plan, n, m, dev),
-            }
+    lib = ops._libraries(dev)["split"]
+    plan = ops.split_plan(n, m, C, n_b=n_b)
+    lay = ops.split_layout(n, m, C, n_b=n_b)
+    box = int(bool(n_b))
+    res_w, res_a = ctypes.c_int(), ctypes.c_int()
+    lib.admm_chunk_split_resident_rows(
+        n, m, C, plan.stages, plan.stage_bytes, box, ctypes.byref(res_w), ctypes.byref(res_a)
+    )
+    lib_bytes = lib.admm_chunk_split_smem_bytes(n, m, C, plan.stages, plan.stage_bytes, box)
+    if (lib_bytes, res_w.value, res_a.value) != (lay.bytes, lay.res_w, lay.res_a):
+        raise RuntimeError(f"n={n}, m={m}, n_b={n_b}, C={C}: the wrapper's split layout is not the kernel's")
+    if lay.bytes > ops.SMEM_PER_BLOCK:
+        return {}
+    k_w = n + m - n_b
+    return {
+        "smem_bytes": lay.bytes,
+        "stage_floats": lay.stage_floats,
+        "resident_rows_w_a": [lay.res_w, lay.res_a],
+        "rows_w_a": [lay.rows_w, lay.rows_a],
+        "streamed_bytes_per_cta_iter": 4 * ((lay.rows_w - lay.res_w) * k_w + (lay.rows_a - lay.res_a) * n),
+        "max_active_clusters": ops.max_active_clusters(plan, n, m, dev),
+    }
+
+
+def _layouts(dev) -> dict:
+    """Every cluster size at horizon 50 (cluster kernel) and horizon 100
+    (split kernel) on the dense operator, and on the box block at horizon
+    50, horizon 100 and the 586-point raceline (cluster kernel) and the
+    1,953-point raceline (split kernel): the wrapper's layouts against
+    the library's, and the sizes that fit with their shared bytes and
+    clusters held at once."""
+    out = {"clusters_h50": _cluster_layouts(dev, *H50, 0), "splits_h100": {}}
+    for C in range(1, 17):
+        facts = _split_layout_facts(dev, *H100, C)
+        if facts:
+            out["splits_h100"][C] = facts
+    for (n, m), key in ((H50, "box_clusters_h50"), (H100, "box_clusters_h100"), ((586, 586), "box_clusters_n586")):
+        out[key] = _cluster_layouts(dev, n, m, n)
+    out["box_splits_n1953"] = {C: _split_layout_facts(dev, 1953, 1953, C, 1953) for C in (8, 12, 16)}
     return out
 
 
@@ -597,55 +696,94 @@ def phase_kernel() -> dict:
                             compare(run(p), want, f"{key} C={p.cluster}")
                             row["ms_by_C"][p.cluster] = time_cuda_ms(lambda: run(p), reps=20)
                 results[key] = row
-    for n in RACELINE_SHAPES:
-        results[f"n{n}_B1"] = _raceline_chunk(n, dev)
+    results.update(_box_chunks())
     emit("phase 3 kernel vs plain", {"n_iters": N_ITERS, **results})
     return results
 
 
-def _raceline_chunk(n: int, dev) -> dict:
-    """The raceline's chunk shape, n = m, B = 1: the split plan's layout
-    against the library's, the kernel against its plain version, times
-    and bound."""
-    import ctypes
+# the box block's shapes and batches in phase 3, and the cluster sizes
+# timed beside each plan (the B <= 15 rule of plan_chunk at horizon 50,
+# the sizes above the fewest at horizon 100 and 586 points)
+BOX_CHUNKS = ((H50, (1, 7, BATCH)), (H100, (1, MAPPING_BATCH)), ((586, 586), (1,)), ((1953, 1953), (1,)))
+BOX_SWEEP = {
+    (H50, 1): (3, 4, 6, 8, 12, 16),
+    (H50, 7): (3, 4, 8),
+    (H50, BATCH): (3, 4, 5, 8),
+    (H100, 1): (10, 12, 16),
+    (H100, MAPPING_BATCH): (10, 12, 16),
+    ((586, 586), 1): (7, 8, 12, 16),
+}
+
+
+def _box_chunks() -> dict:
+    """Each box-block variant as planned against both plain versions (the
+    box block's, and the dense one on the dense operator of the same QP)
+    on the main path's QPs (``box_qps``, from a cold start) at horizon 50
+    (B 1, 7, 256), horizon 100 (B 1, 8) and the raceline's 586 and 1,953
+    points, with and without a mixed ``active`` mask: its
+    ms, the plain version's, both bounds (the dense operator's, and what
+    these inputs need), the operator's bytes either way; the dense
+    kernel as planned on the dense operator of the same QP (the earlier
+    figure); and unmasked, the other cluster sizes."""
+    import torch
 
     import acmpc_tpu_torch.ops.admm_chunk as ops
 
-    plan = ops.plan_chunk(n, n, 1)
-    if plan.variant != "split":
-        raise RuntimeError(f"n = m = {n}: planned {plan}, not the split kernel")
-    lay = ops.split_layout(n, n, plan.cluster, plan.stages, plan.stage_bytes)
-    lib = ops._libraries(dev)["split"]
-    res_w, res_a = ctypes.c_int(), ctypes.c_int()
-    lib.admm_chunk_split_resident_rows(
-        n, n, plan.cluster, plan.stages, plan.stage_bytes, ctypes.byref(res_w), ctypes.byref(res_a)
-    )
-    lib_bytes = lib.admm_chunk_split_smem_bytes(n, n, plan.cluster, plan.stages, plan.stage_bytes)
-    if (lib_bytes, res_w.value, res_a.value) != (lay.bytes, lay.res_w, lay.res_a):
-        raise RuntimeError(f"n = m = {n}: the wrapper's split layout is not the kernel's")
-    inputs = random_chunk_inputs(1, n, n, seed=n, device=DEVICE)
-    want = ops.admm_chunk_reference(*inputs, n_iters=N_ITERS, alpha=ALPHA)
-    ops.admm_chunk.launches.clear()
-    got = ops.admm_chunk(*inputs, n_iters=N_ITERS, alpha=ALPHA)
-    if dict(ops.admm_chunk.launches) != {ops.SPLIT: 1}:
-        raise RuntimeError(f"n = m = {n}: expected one split launch, got {dict(ops.admm_chunk.launches)}")
-    bound_ms, bound_by = chunk_bound(n, n, N_ITERS, 1, 1, False)
-    return {
-        "kernel": ops.SPLIT,
-        "C": plan.cluster,
-        "smem_bytes": lay.bytes,
-        "stage_floats": lay.stage_floats,
-        "resident_rows_w_a": [lay.res_w, lay.res_a],
-        "rows_w_a": [lay.rows_w, lay.rows_a],
-        "streamed_bytes_per_cta_iter": 4 * ((lay.rows_w - lay.res_w) * 2 * n + (lay.rows_a - lay.res_a) * n),
-        "max_abs_err": compare(got, want, f"n{n}_B1"),
-        "ms": time_cuda_ms(lambda: ops._launch(plan, *inputs, n_iters=N_ITERS, alpha=ALPHA), reps=20),
-        "plain_ms": time_cuda_ms(
-            lambda: ops.admm_chunk_reference(*inputs, n_iters=N_ITERS, alpha=ALPHA), reps=5
-        ),
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-    }
+    out = {}
+    for (n, m), batches in BOX_CHUNKS:
+        m_d = m - n
+        for batch in batches:
+            dense, box, kw = box_chunk_inputs(*box_qps(n, m, batch))
+            plan, dense_plan = ops.plan_chunk(n, m, batch, n), ops.plan_chunk(n, m, batch)
+            active = torch.arange(batch, device=DEVICE) % 3 != 1
+            for masked in (False, True):
+                mask = active if masked else None
+                key = f"box_n{n}_B{batch}{'_active' if masked else ''}"
+
+                def run(p=plan, mask=mask):
+                    return ops._launch(p, *box, n_iters=N_ITERS, alpha=ALPHA, active=mask, **kw)
+
+                def run_dense(mask=mask):
+                    return ops._launch(dense_plan, *dense, n_iters=N_ITERS, alpha=ALPHA, active=mask)
+
+                def plain(mask=mask):
+                    return ops.admm_chunk_box_reference(*box, n_iters=N_ITERS, alpha=ALPHA, active=mask, **kw)
+
+                want = plain()
+                want_dense = ops.admm_chunk_reference(*dense, n_iters=N_ITERS, alpha=ALPHA, active=mask)
+                ops.admm_chunk.launches.clear()
+                got = ops.admm_chunk(*box, n_iters=N_ITERS, alpha=ALPHA, active=mask, **kw)
+                name = ops.kernel_name(plan, masked)
+                if dict(ops.admm_chunk.launches) != {name: 1}:
+                    raise RuntimeError(f"{key}: expected one launch of {name}, got {dict(ops.admm_chunk.launches)}")
+                n_active = int(active.sum()) if masked else batch
+                row = {
+                    "kernel": name,
+                    "C": plan.cluster,
+                    "max_abs_err": compare(got, want, key),
+                    "dense_plain_max_abs_err": compare(got, want_dense, f"{key} vs the dense plain version"),
+                    "ms": time_cuda_ms(run, reps=20),
+                    "plain_ms": time_cuda_ms(plain, reps=5),
+                    "operator_bytes": 4 * (n * (n + m_d) + m_d * n + n),
+                    "dense_operator_bytes": 4 * (n * (n + m) + m * n),
+                    "dense_kernel": ops.kernel_name(dense_plan, masked),
+                    "dense_C": dense_plan.cluster,
+                    "dense_max_abs_err": compare(run_dense(), want_dense, f"{key} dense"),
+                    "dense_ms": time_cuda_ms(run_dense, reps=20),
+                }
+                row["bound_ms"], row["bound_by"] = chunk_bound(n, m, N_ITERS, n_active, batch, masked, n)
+                row["dense_bound_ms"], row["dense_bound_by"] = chunk_bound(n, m, N_ITERS, n_active, batch, masked)
+                if plan.variant == "split":
+                    row.update(_split_layout_facts(torch.cuda.current_device(), n, m, plan.cluster, n))
+                sweep = BOX_SWEEP.get(((n, m), batch), ())
+                if sweep and not masked:
+                    row["ms_by_C"] = {}
+                    for C in sweep:
+                        p = ops.cluster_plan(n, m, C, n)
+                        compare(run(p), want, f"{key} C={C}")
+                        row["ms_by_C"][C] = time_cuda_ms(lambda: run(p), reps=20)
+                out[key] = row
+    return out
 
 
 def difficulty_ramp(horizon: int, batch: int) -> np.ndarray:
@@ -691,7 +829,7 @@ def make_mpc(track: str, device, mode: str = "racing"):
 def phase_main_path() -> dict:
     import torch
 
-    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER, CLUSTER_ACTIVE, admm_chunk
+    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER_BOX, CLUSTER_BOX_ACTIVE, admm_chunk
 
     mpc = make_mpc("monza", DEVICE)
     skipping = make_mpc("monza", DEVICE)
@@ -722,7 +860,7 @@ def phase_main_path() -> dict:
                 raise RuntimeError(f"main path step {i}: {f.name} not finite")
     if steps[-1].projected_control.shape != (BATCH, 2, HORIZON - 1):
         raise RuntimeError(f"bad command shape {tuple(steps[-1].projected_control.shape)}")
-    for name in (CLUSTER, CLUSTER_ACTIVE):
+    for name in (CLUSTER_BOX, CLUSTER_BOX_ACTIVE):
         if launches.get(name, 0) == 0:
             raise RuntimeError(f"main path never launched {name}")
 
@@ -761,7 +899,7 @@ def phase_single_golden() -> dict:
     import torch
 
     from acmpc_tpu_torch.geometry.tracks import battery
-    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER, admm_chunk
+    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER_BOX, admm_chunk
 
     golden = np.load(ROOT / "tests" / "fixtures" / "golden_controls.npz")
     windows = battery(HORIZON)
@@ -784,9 +922,9 @@ def phase_single_golden() -> dict:
                     got, want, rtol=GOLDEN_TOL, atol=GOLDEN_TOL, err_msg=key
                 )
                 worst = max(worst, float(np.abs(got - want).max()))
-    golden_launches = admm_chunk.launches[CLUSTER]
+    golden_launches = admm_chunk.launches[CLUSTER_BOX]
     if golden_launches == 0:
-        raise RuntimeError(f"get_control never launched {CLUSTER}")
+        raise RuntimeError(f"get_control never launched {CLUSTER_BOX}")
 
     # warm-started single-scenario step (the flagship entry's counterpart)
     mpc = make_mpc("monza", DEVICE)
@@ -816,12 +954,12 @@ def phase_single_golden() -> dict:
 
 
 def phase_mapping() -> dict:
-    """Monza's mapping control (horizon 100), whose operator no cluster
-    holds whole: a cold step with skipping on, then five warm steps, at
-    B = 8."""
+    """Monza's mapping control (horizon 100), whose operator a cluster of
+    10 holds on the box block: a cold step with skipping on, then five
+    warm steps, at B = 8."""
     import torch
 
-    from acmpc_tpu_torch.ops.admm_chunk import SPLIT, SPLIT_ACTIVE, admm_chunk
+    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER_BOX, CLUSTER_BOX_ACTIVE, admm_chunk
 
     mpc = make_mpc("monza", DEVICE, mode="mapping")
     skipping = make_mpc("monza", DEVICE, mode="mapping")
@@ -852,7 +990,7 @@ def phase_mapping() -> dict:
             raise RuntimeError(f"mapping step {i}: commands not finite")
     if steps[-1].projected_control.shape != (MAPPING_BATCH, 2, horizon - 1):
         raise RuntimeError(f"bad command shape {tuple(steps[-1].projected_control.shape)}")
-    for name in (SPLIT, SPLIT_ACTIVE):
+    for name in (CLUSTER_BOX, CLUSTER_BOX_ACTIVE):
         if launches.get(name, 0) == 0:
             raise RuntimeError(f"mapping control never launched {name}")
 
@@ -888,7 +1026,7 @@ def phase_mapping_single() -> dict:
     and five warm steps."""
     import torch
 
-    from acmpc_tpu_torch.ops.admm_chunk import SPLIT, admm_chunk
+    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER_BOX, admm_chunk
 
     mpc = make_mpc("monza", DEVICE, mode="mapping")
     horizon = mpc.config.horizon
@@ -913,8 +1051,8 @@ def phase_mapping_single() -> dict:
             raise RuntimeError(f"mapping get_control step {i} unsolved")
         if not bool(torch.isfinite(s.projected_control).all()):
             raise RuntimeError(f"mapping get_control step {i}: commands not finite")
-    if launches.get(SPLIT, 0) == 0:
-        raise RuntimeError(f"mapping get_control never launched {SPLIT}")
+    if launches.get(CLUSTER_BOX, 0) == 0:
+        raise RuntimeError(f"mapping get_control never launched {CLUSTER_BOX}")
 
     cpu_mpc = make_mpc("monza", "cpu", mode="mapping")
     cpu_state, _ = cpu_mpc.get_control(cpu_mpc.initial_state(), torch.as_tensor(ref_np))
@@ -964,10 +1102,10 @@ def _finite(t) -> bool:
 def _check_closed_loop(label: str, n_steps: int, launches: dict, rate: float, least: float):
     """One cluster launch per closed-loop step (one RTI chunk per solve)
     and a solve success of at least ``least``."""
-    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER
+    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER_BOX
 
-    if launches != {CLUSTER: n_steps}:
-        raise RuntimeError(f"{label}: expected {n_steps} launches of {CLUSTER}, got {launches}")
+    if launches != {CLUSTER_BOX: n_steps}:
+        raise RuntimeError(f"{label}: expected {n_steps} launches of {CLUSTER_BOX}, got {launches}")
     if rate < least:
         raise RuntimeError(f"{label}: solve success {rate} < {least}")
 
@@ -1090,7 +1228,7 @@ def phase_multi_track() -> dict:
     from acmpc_tpu_torch.geometry.tracks import get_hairpin_track, with_widths
     from acmpc_tpu_torch.mpc.multi_track import MultiTrackMPC
     from acmpc_tpu_torch.mpc.spatial_mpc import SpatialMPC
-    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER
+    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER_BOX
 
     agent = [load_config(ROOT / "configs" / f"{t}.yaml") for t in TRACKS]
     configs = [dataclasses.replace(c.racing_control, horizon=HORIZON) for c in agent]
@@ -1143,8 +1281,8 @@ def phase_multi_track() -> dict:
         if not _finite(s.projected_control):
             raise RuntimeError(f"grid step {i}: commands not finite")
     for label, counts in (("fixture", fixture_launches), ("grid", grid_launches)):
-        if counts.get(CLUSTER, 0) == 0 or set(counts) != {CLUSTER}:
-            raise RuntimeError(f"multi-track {label}: expected launches of {CLUSTER}, got {counts}")
+        if counts.get(CLUSTER_BOX, 0) == 0 or set(counts) != {CLUSTER_BOX}:
+            raise RuntimeError(f"multi-track {label}: expected launches of {CLUSTER_BOX}, got {counts}")
     warm_ms = 1e3 * float(np.median(step_s))
     launches = collections.Counter(fixture_launches)
     launches.update(grid_launches)
@@ -1226,7 +1364,7 @@ def phase_perception() -> dict:
     from acmpc_tpu_torch.localise.track_map import TrackMap
     from acmpc_tpu_torch.models.checkpoint import read_checkpoint
     from acmpc_tpu_torch.ops import track_chain as chain
-    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER
+    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER_BOX
     from acmpc_tpu_torch.perception.camera import CameraInfo
     from acmpc_tpu_torch.perception.perceiver import Perceiver
     from acmpc_tpu_torch.perception.tracks import scan_rows
@@ -1397,8 +1535,8 @@ def phase_perception() -> dict:
     # kernel is on no path
     if launches.get(chain.TRACK_CHAIN_EDGES, 0) != run["frames"] + 1 or chain.TRACK_CHAIN_SCAN in launches:
         raise RuntimeError(f"perception loop: chain launches {launches} for {run['frames']} + 1 frames")
-    if launches.get(CLUSTER, 0) == 0:
-        raise RuntimeError(f"perception loop never launched {CLUSTER}: {launches}")
+    if launches.get(CLUSTER_BOX, 0) == 0:
+        raise RuntimeError(f"perception loop never launched {CLUSTER_BOX}: {launches}")
     info["loop"] = run
     info["launches"] = launches
     # the loop's launches and busy time per frame
@@ -1521,7 +1659,7 @@ def _racelines() -> dict:
     """Phase 13 (a): every fixture case on the card against JAX's alpha."""
     import torch
 
-    from acmpc_tpu_torch.ops.admm_chunk import SPLIT
+    from acmpc_tpu_torch.ops.admm_chunk import kernel_name, plan_chunk
     from acmpc_tpu_torch.utils.raceline import solve_raceline
 
     fixture = np.load(RACELINE_FIXTURE)
@@ -1564,8 +1702,11 @@ def _racelines() -> dict:
         }
         if not all(bool(sol.solved) for sol in r.solutions) or not np.isfinite(alpha).all():
             raise RuntimeError(f"raceline {key}: a QP unsolved or alpha not finite: {row}")
-        if set(counts) != {SPLIT} or counts[SPLIT] != sum(iterations) // 25:
-            raise RuntimeError(f"raceline {key}: expected {sum(iterations) // 25} split launches only: {counts}")
+        # the box block: a cluster up to 942 points, the split kernel at 1,953
+        n = len(centre)
+        name = kernel_name(plan_chunk(n, n, 1, n), False)
+        if counts != {name: sum(iterations) // 25}:
+            raise RuntimeError(f"raceline {key}: expected {sum(iterations) // 25} launches of {name} only: {counts}")
         if (
             err > RACELINE_ALPHA_TOL
             or row["kappa_max_abs_err"] > RACELINE_KAPPA_SHARE * row["kappa_max_abs_jax"]
@@ -1684,7 +1825,7 @@ def _parallel_world_of_one() -> dict:
 
     from acmpc_tpu_torch.bench.pod_sweep import max_ulps, profile_path
     from acmpc_tpu_torch.config import load_config
-    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER, CLUSTER_ACTIVE
+    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER_BOX, CLUSTER_BOX_ACTIVE
     from acmpc_tpu_torch.parallel import make_mesh, sharded_get_control
     from acmpc_tpu_torch.parallel.multihost import start_process_group
 
@@ -1724,7 +1865,7 @@ def _parallel_world_of_one() -> dict:
     solved = [int(f["n_solved"]) for f in fleets]
     if solved != [BATCH] * 6:
         raise RuntimeError(f"parallel (a): n_solved per step {solved}, not {BATCH}")
-    for name in (CLUSTER, CLUSTER_ACTIVE):
+    for name in (CLUSTER_BOX, CLUSTER_BOX_ACTIVE):
         if launches.get(name, 0) == 0:
             raise RuntimeError(f"parallel (a): never launched {name}")
     err = max(float((s.projected_control - f.projected_control).abs().max()) for s, f in zip(steps, fused))
@@ -1996,13 +2137,13 @@ def _vmapped_racing() -> dict:
     the fused engine, 8 lanes against the CPU."""
     import torch
 
-    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER, CLUSTER_ACTIVE
+    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER_BOX, CLUSTER_BOX_ACTIVE
 
     mpc = make_mpc("monza", DEVICE)
     refs = torch.as_tensor(difficulty_ramp(HORIZON, BATCH), device=DEVICE)
     (states, diags, walls), launches = _counted(lambda: _batched_steps(mpc, refs, 6))
     _check_steps("vmapped racing", states, BATCH, HORIZON)
-    for name in (CLUSTER, CLUSTER_ACTIVE):
+    for name in (CLUSTER_BOX, CLUSTER_BOX_ACTIVE):
         if launches.get(name, 0) == 0:
             raise RuntimeError(f"vmapped racing never launched {name}")
 
@@ -2051,6 +2192,7 @@ def _vmapped_random_qps() -> dict:
     against its unbatched solve on the card."""
     import torch
 
+    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER
     from acmpc_tpu_torch.qp.admm import ADMMConfig, _solve_lanes, _solve_one
 
     cfg = ADMMConfig()
@@ -2078,8 +2220,9 @@ def _vmapped_random_qps() -> dict:
         raise RuntimeError(f"vmapped QPs: lanes {err} from single solves")
     single_rho = torch.stack([r for _, r in singles])
     single_its = torch.stack([s.iterations for s, _ in singles])
-    if not launches:
-        raise RuntimeError("vmapped QPs launched no chunk kernel")
+    # random A of no known layout: the dense operator
+    if launches.get(CLUSTER, 0) == 0 or any("[box" in k for k in launches):
+        raise RuntimeError(f"vmapped QPs: launches {launches}, not the dense cluster kernel's")
     return {
         "batch": VMAP_QPS,
         "n": H50[0],
@@ -2098,19 +2241,19 @@ def _vmapped_random_qps() -> dict:
 
 def _vmapped_mapping() -> dict:
     """(c): monza's mapping control (horizon 100) at B = 8 through
-    ``batched_get_control``, on the split kernel; lanes against
+    ``batched_get_control``, in a cluster on the box block; lanes against
     get_control alone."""
     import torch
 
-    from acmpc_tpu_torch.ops.admm_chunk import SPLIT
+    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER_BOX
 
     mpc = make_mpc("monza", DEVICE, mode="mapping")
     horizon = mpc.config.horizon
     refs = torch.as_tensor(difficulty_ramp(horizon, BATCH)[:MAPPING_BATCH], device=DEVICE)
     (states, diags, walls), launches = _counted(lambda: _batched_steps(mpc, refs, 6))
     _check_steps("vmapped mapping", states, MAPPING_BATCH, horizon)
-    if launches.get(SPLIT, 0) == 0 or any(k.startswith("admm_chunk_cluster") for k in launches):
-        raise RuntimeError(f"vmapped mapping: launches {launches}, not the split kernel's")
+    if launches.get(CLUSTER_BOX, 0) == 0 or any(k.startswith("admm_chunk_split") for k in launches):
+        raise RuntimeError(f"vmapped mapping: launches {launches}, not the box-block cluster kernel's")
     lanes = torch.arange(MAPPING_BATCH)
     single = {
         "cold": _lanes_against_single(mpc, states[0], states[1], diags[0], refs, lanes),
@@ -2182,7 +2325,7 @@ def _vmapped_sub_mesh() -> dict:
     """(e): ``make_mesh(1)`` at two gloo ranks sharing the card
     (``bench/pod_sweep.py``'s submesh case)."""
     from acmpc_tpu_torch.bench import pod_sweep
-    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER
+    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER_BOX
 
     t0 = time.perf_counter()
     (member, arrays), (outsider, _) = pod_sweep.launch(("submesh",), PARALLEL_RANKS, DEVICE, "gloo")["submesh"]
@@ -2190,8 +2333,8 @@ def _vmapped_sub_mesh() -> dict:
     rows = len(pod_sweep.SUBMESH_WINDOWS)
     if (member["is_member"], member["rows"], member["n_solved"]) != (True, rows, rows):
         raise RuntimeError(f"sub-mesh rank 0: {member}")
-    if member["launches"].get(CLUSTER, 0) == 0:
-        raise RuntimeError(f"sub-mesh rank 0 never launched {CLUSTER}: {member['launches']}")
+    if member["launches"].get(CLUSTER_BOX, 0) == 0:
+        raise RuntimeError(f"sub-mesh rank 0 never launched {CLUSTER_BOX}: {member['launches']}")
     err = float(np.abs(arrays["projected_control"] - arrays["batched"]).max())
     if err > VMAP_LANE_TOL:
         raise RuntimeError(f"sub-mesh: sharded_get_control {err} from batched_get_control")
@@ -2249,7 +2392,7 @@ def phase_training() -> dict:
     from acmpc_tpu_torch.cli import train_segmenter as ts
     from acmpc_tpu_torch.models.checkpoint import read_checkpoint
     from acmpc_tpu_torch.ops import track_chain as chain
-    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER
+    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER_BOX
     from acmpc_tpu_torch.perception.perceiver import Perceiver
     from acmpc_tpu_torch.perception.segmentation import TrackSegmenter
 
@@ -2342,7 +2485,7 @@ def phase_training() -> dict:
         raise RuntimeError(f"trained checkpoint's loop: solve success {loop_run['solve_success']}")
     if not loop_run["max_offtrack_m"] < loop.HALF_WIDTH:
         raise RuntimeError(f"trained checkpoint's loop: the car left the track by {loop_run['max_offtrack_m']} m")
-    if launches.get(chain.TRACK_CHAIN_EDGES, 0) != loop_run["frames"] + 1 or launches.get(CLUSTER, 0) == 0:
+    if launches.get(chain.TRACK_CHAIN_EDGES, 0) != loop_run["frames"] + 1 or launches.get(CLUSTER_BOX, 0) == 0:
         raise RuntimeError(f"trained checkpoint's loop: launches {launches} for {loop_run['frames']} + 1 frames")
     if _sha256(SHIPPED_FPN) != shipped_sha:
         raise RuntimeError("the shipped checkpoint changed during the training phase")
@@ -2366,31 +2509,36 @@ def kernels_line(
     kernel: dict, main: dict, mapping: dict, sweep: dict, multi: dict, perception: dict, agent: dict,
     tools: dict, parallel: dict, vmapped: dict, training: dict,
 ) -> dict:
-    """One row per kernel variant: launches from the paths that run it
-    (cluster: phases 4, 8, 9, 10, 12, 13's racing agent, 14's world of
-    one and two ranks, 15's racing step, random QPs, lap sweep and
-    sub-mesh and 16's loop on the trained checkpoint; split: phases 6, 12,
-    13's racelines and 15's mapping step; stream:
-    none since the split kernel, so the count from phase 6 is 0; chain
-    edges: phase 10's loop, phase 12 and 13's racing agent and 16's loop;
-    chain scan: none since the
-    chain-edges kernel, so the count from phase 10's loop is 0), numbers
-    from phase 3 at the horizon-50
-    B = 256 or the mapping shapes (stream: at the mapping shapes, on the
-    split kernel's inputs), and for both chain kernels from phase 10 at
-    1280x736, band 4."""
+    """One row per kernel variant: launches summed over the paths
+    (phases 4, 6, 8-10 and 12-16; phase 5 and 7 are single-scenario
+    checks), each counted by its own name: the box-block cluster kernel
+    takes every control QP and the racelines up to 942 points, the
+    box-block split kernel the 1,953-point raceline (no path masks it);
+    the dense cluster kernel phase 15's random QPs; the dense split and
+    streaming kernels no path (no caller hands them a dense operator that
+    no cluster holds); chain edges phase 10's loop, phase 12 and 13's
+    racing agent and 16's loop; the chain scan none since the chain-edges
+    kernel. Numbers from phase 3 (dense: horizon 50 at B = 256, the
+    mapping shapes for the split and streaming kernels; box block:
+    horizon 50 at B = 256 for the cluster kernel, the 1,953-point
+    raceline for the split kernel, with the bound of what those inputs
+    need) and for both chain kernels from phase 10 at 1280x736, band 4."""
     import acmpc_tpu_torch.ops.admm_chunk as ops
     import acmpc_tpu_torch.ops.track_chain as chain
 
-    def row(name, key, line, path, prefix=""):
+    paths = collections.Counter()
+    for path in (main, mapping, sweep, multi, perception, agent, tools, parallel, vmapped, training):
+        paths.update(path["launches"])
+
+    def row(name, key, line, prefix=""):
         r = kernel[key]
-        variant = name.removeprefix("admm_chunk_").removesuffix("[active]")
+        variant = name.removeprefix("admm_chunk_").split("[")[0]
         return {
             "name": name,
             "route": "cuda",
             "source": f"acmpc_tpu_torch/csrc/{ops.SOURCES[variant]}",
             "replaces": f"acmpc_tpu/ops/pallas_admm.py:{line}",
-            "launches": path["launches"].get(name, 0),
+            "launches": paths.get(name, 0),
             "max_abs_err": r[f"{prefix}max_abs_err"],
             "ms": r[f"{prefix}ms"],
             "plain_ms": r["plain_ms"],
@@ -2402,24 +2550,20 @@ def kernels_line(
     n50, n100 = H50[0], H100[0]
     h50, h50a = f"n{n50}_B{BATCH}", f"n{n50}_B{BATCH}_active"
     h100, h100a = f"n{n100}_B{MAPPING_BATCH}", f"n{n100}_B{MAPPING_BATCH}_active"
-    cluster_paths = collections.Counter(agent["launches"])
-    for path in (main, sweep, multi, perception, tools, parallel, vmapped, training):
-        cluster_paths.update(path["launches"])
-    cluster_paths = {"launches": cluster_paths}
-    split_paths = {"launches": sum(
-        (collections.Counter(p["launches"]) for p in (mapping, agent, tools, vmapped)),
-        collections.Counter(),
-    )}
     scan = perception["chain_scan"]["band4"]
     edges = perception["chain_edges"]["band4"]
     return {
         "kernels": [
-            row(ops.CLUSTER, h50, 99, cluster_paths),
-            row(ops.CLUSTER_ACTIVE, h50a, 103, cluster_paths),
-            row(ops.SPLIT, h100, 99, split_paths),
-            row(ops.SPLIT_ACTIVE, h100a, 103, split_paths),
-            row(ops.STREAM, h100, 99, mapping, prefix="stream_"),
-            row(ops.STREAM_ACTIVE, h100a, 103, mapping, prefix="stream_"),
+            row(ops.CLUSTER, h50, 99),
+            row(ops.CLUSTER_ACTIVE, h50a, 103),
+            row(ops.CLUSTER_BOX, f"box_{h50}", 99),
+            row(ops.CLUSTER_BOX_ACTIVE, f"box_{h50a}", 103),
+            row(ops.SPLIT, h100, 99),
+            row(ops.SPLIT_ACTIVE, h100a, 103),
+            row(ops.SPLIT_BOX, "box_n1953_B1", 99),
+            row(ops.SPLIT_BOX_ACTIVE, "box_n1953_B1_active", 103),
+            row(ops.STREAM, h100, 99, prefix="stream_"),
+            row(ops.STREAM_ACTIVE, h100a, 103, prefix="stream_"),
             {
                 "name": chain.TRACK_CHAIN_SCAN,
                 "route": "cuda",

@@ -16,8 +16,11 @@ import acmpc_tpu_torch.ops.admm_chunk as ops
 from acmpc_tpu_torch.ops.admm_chunk import (
     CLUSTER,
     CLUSTER_ACTIVE,
+    CLUSTER_BOX,
+    CLUSTER_BOX_ACTIVE,
     ChunkPlan,
     admm_chunk,
+    admm_chunk_box_reference,
     admm_chunk_reference,
     plan_chunk,
 )
@@ -277,6 +280,178 @@ def test_refused_split_raises(cuda_device):
         ops._launch(plan, *args, n_iters=1, alpha=ALPHA)
 
 
+# -- the box block: A_s = [A_d; diag(g)], the operator W_s = [K^-1 | K^-1
+# A_d'] (ops/admm_chunk.py). Each kernel against both plain versions: the
+# box block's and the dense one on the same QP (W = [sigma K^-1 | K^-1
+# A_s'], A_s), at the iterates' scale as above; the two plain versions
+# differ by their own fp32 rounding (tests/test_torch_admm_box.py)
+SIGMA = 1e-5
+BOX_SHAPES = {
+    "control": (20, 12), "raceline": (24, 0), "odd": (21, 9),
+    "h50": (248, 150), "h100": (498, 300), "n586": (586, 0), "n1953": (1953, 0),
+}
+
+
+def _box_inputs(batch, seed, device, n, m_d, offset=0):
+    """B QPs whose scaled A is [A_d; diag(g)] (as
+    tests/test_torch_admm_box._qps, built with numpy): a dict of the dense
+    chunk inputs ("W", "A"), the box block's ("Ws", "Ad", "g") and the
+    vectors, fp32 on ``device``; ``offset`` as in :func:`_chunk_inputs`."""
+    rng = np.random.default_rng(seed)
+    m = m_d + n
+    keys = ("W", "A", "Ws", "Ad", "g", "c0", "rho", "l", "u", "x", "z", "y")
+    out = {k: [] for k in keys}
+    for _ in range(batch):
+        Mx = rng.normal(size=(n, n))
+        P = Mx @ Mx.T / n + 0.5 * np.eye(n)
+        Ad = rng.normal(size=(m_d, n)) / np.sqrt(n)
+        g = rng.uniform(0.5, 2.0, size=n)
+        A = np.concatenate([Ad, np.diag(g)])
+        centre = A @ rng.normal(size=n)
+        half = rng.uniform(0.2, 1.5, size=m)
+        half[: m_d : 5] = 0.0
+        rho = np.where(half == 0.0, 100.0, 0.1)
+        Kinv = np.linalg.inv(P + SIGMA * np.eye(n) + A.T @ (rho[:, None] * A))
+        x = rng.normal(scale=0.3, size=n)
+        for k, v in zip(keys, (
+            np.concatenate([SIGMA * Kinv, Kinv @ A.T], axis=1), A,
+            np.concatenate([Kinv, Kinv @ Ad.T], axis=1), Ad, g,
+            -Kinv @ rng.normal(size=n), rho, centre - half, centre + half, x,
+            np.clip(A @ x, centre - half, centre + half),
+            rng.normal(scale=0.1, size=m),
+        )):
+            out[k].append(v)
+    tensors = {}
+    for k in keys:
+        t = torch.as_tensor(np.stack(out[k]), dtype=torch.float32, device=device)
+        if offset:
+            flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=device)
+            t = flat[offset:].view(t.shape).copy_(t)
+        tensors[k] = t
+    return tensors
+
+
+VECS = ("c0", "rho", "l", "u", "x", "z", "y")
+
+
+def _box_args(inp):
+    return [inp[k] for k in ("Ws", "Ad", *VECS)], dict(g=inp["g"], sigma=SIGMA)
+
+
+def _box_both(inp, n_iters=ITERS, active=None):
+    """(the box block's plain version, the dense one)."""
+    args, kw = _box_args(inp)
+    box = admm_chunk_box_reference(*args, n_iters=n_iters, alpha=ALPHA, active=active, **kw)
+    dense = admm_chunk_reference(
+        *(inp[k] for k in ("W", "A", *VECS)), n_iters=n_iters, alpha=ALPHA, active=active
+    )
+    return box, dense
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["control", "raceline", "odd", "h50", "h100", "n586"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_box_cluster_matches_both_references_on_card(cuda_device, shape, masked):
+    n, m_d = BOX_SHAPES[shape]
+    inp = _box_inputs(3, 70, cuda_device, n, m_d)
+    active = torch.tensor([True, False, True], device=cuda_device) if masked else None
+    plan = plan_chunk(n, m_d + n, 3, n)
+    assert plan.variant == "cluster" and plan.box
+    args, kw = _box_args(inp)
+    admm_chunk.launches.clear()
+    got = admm_chunk(*args, n_iters=ITERS, alpha=ALPHA, active=active, **kw)
+    assert dict(admm_chunk.launches) == {CLUSTER_BOX_ACTIVE if masked else CLUSTER_BOX: 1}
+    for want in _box_both(inp, active=active):
+        _assert_matches(got, want)
+    if masked:
+        for g, start in zip(got, args[6:]):
+            assert torch.equal(g[1], start[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape, C", [("odd", 1), ("odd", 16), ("raceline", 3), ("h50", 3), ("h50", 8), ("h50", 16), ("h100", 16)]
+)
+def test_box_cluster_sizes_and_unaligned_bases_on_card(cuda_device, shape, C):
+    # any cluster size and base address; at C = 16 and n = 21 five CTAs
+    # hold no W rows, and at m_d = 9 seven hold no A rows
+    n, m_d = BOX_SHAPES[shape]
+    inp = _box_inputs(2, 71, cuda_device, n, m_d, offset=1)
+    assert inp["Ws"].data_ptr() % 16 != 0
+    args, kw = _box_args(inp)
+    got = ops._launch(ops.cluster_plan(n, m_d + n, C, n), *args, n_iters=ITERS, alpha=ALPHA, **kw)
+    for want in _box_both(inp):
+        _assert_matches(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape, C, offset", [("odd", 16, 1), ("h100", 8, 1), ("h100", 16, 0), ("n1953", 16, 0), ("n1953", 16, 3)]
+)
+@pytest.mark.parametrize("masked", [False, True])
+def test_box_split_matches_both_references_on_card(cuda_device, shape, C, offset, masked):
+    # the split kernel on the box block: at horizon 100 with C = 8 W rows
+    # and every A_d row stream; at 1,953 points, as planned, 101 of each
+    # CTA's 123 rows of W_s stream and there is no A_d
+    n, m_d = BOX_SHAPES[shape]
+    batch = 1 if n > 1000 else 3
+    inp = _box_inputs(batch, 72 + C, cuda_device, n, m_d, offset=offset)
+    active = (torch.arange(batch, device=cuda_device) != 1) if masked else None
+    plan = ops.split_plan(n, m_d + n, C, n_b=n)
+    if shape == "n1953":
+        assert plan == plan_chunk(n, m_d + n, batch, n)
+    args, kw = _box_args(inp)
+    admm_chunk.launches.clear()
+    got = ops._launch(plan, *args, n_iters=ITERS, alpha=ALPHA, active=active, **kw)
+    assert dict(admm_chunk.launches) == {ops.SPLIT_BOX_ACTIVE if masked else ops.SPLIT_BOX: 1}
+    for want in _box_both(inp, active=active):
+        _assert_matches(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["cluster", "split"])
+def test_box_zero_and_few_iterations_on_card(cuda_device, variant):
+    n, m_d = BOX_SHAPES["h50"]
+    inp = _box_inputs(2, 73, cuda_device, n, m_d)
+    args, kw = _box_args(inp)
+    plan = plan_chunk(n, m_d + n, 2, n) if variant == "cluster" else ops.split_plan(n, m_d + n, 8, n_b=n)
+    got = ops._launch(plan, *args, n_iters=0, alpha=ALPHA, **kw)
+    torch.cuda.synchronize()
+    for g, start in zip(got, args[6:]):
+        assert torch.equal(g, start)
+    for n_iters in (1, 2):
+        got = ops._launch(plan, *args, n_iters=n_iters, alpha=ALPHA, **kw)
+        for want in _box_both(inp, n_iters=n_iters):
+            _assert_matches(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["h100", "n1953"])
+def test_box_kernels_are_deterministic_on_card(cuda_device, shape):
+    # each sum has one fixed order: a race in the exchange, the box rows'
+    # update or the ring would show as a launch whose bits differ
+    n, m_d = BOX_SHAPES[shape]
+    batch = 1 if n > 1000 else 8
+    inp = _box_inputs(batch, 74, cuda_device, n, m_d, offset=1)
+    args, kw = _box_args(inp)
+    plan = plan_chunk(n, m_d + n, batch, n)
+    first = ops._launch(plan, *args, n_iters=ITERS, alpha=ALPHA, **kw)
+    for _ in range(20):
+        again = ops._launch(plan, *args, n_iters=ITERS, alpha=ALPHA, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(again, first):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_box_cluster_occupancy_on_card(cuda_device):
+    # the box block's plans schedule: horizon 50 at C = 3, horizon 100 at
+    # C = 10 (the non-portable cluster size), the 586-point raceline at 8
+    for n, m_d, batch in ((248, 150, 256), (498, 300, 8), (586, 0, 1)):
+        plan = plan_chunk(n, m_d + n, batch, n)
+        assert ops.max_active_clusters(plan, n, m_d + n, cuda_device.index or 0) >= 1
+
+
 @pytest.mark.cuda
 def test_kernel_refuses_mixed_devices(cuda_device):
     args = _chunk_inputs(2, 7, cuda_device)
@@ -398,7 +573,7 @@ def test_lap_sweep_on_card_matches_cpu_step_by_step(cuda_device):
             states.projected_control.cpu(), c_states.projected_control, rtol=2e-3, atol=2e-3
         )
         torch.testing.assert_close(metrics["v"].cpu(), c_metrics["v"], rtol=2e-3, atol=2e-3)
-    assert dict(admm_chunk.launches) == {CLUSTER: 10}
+    assert dict(admm_chunk.launches) == {CLUSTER_BOX: 10}
 
 
 @pytest.mark.cuda
@@ -417,7 +592,7 @@ def test_multi_track_on_card_matches_golden(cuda_device):
     caps = np.array([min(30.0, c.unlocalised_max_speed or 30.0) for c in configs], np.float32)
     admm_chunk.launches.clear()
     out, _ = mt.get_control(mt.initial_states(), refs.astype(np.float32), caps)
-    assert admm_chunk.launches[CLUSTER] > 0
+    assert admm_chunk.launches[CLUSTER_BOX] > 0
     golden = np.load(ROOT / "tests" / "fixtures" / "golden_controls.npz")
     np.testing.assert_array_equal(out.solved.cpu().numpy(), golden["multi_track/solved"])
     for field in ("projected_control", "cum_time"):
@@ -776,8 +951,9 @@ def test_controller_solve_on_card_matches_cpu(cuda_device, tmp_path, mode):
         for field in ("controls", "cum_time", "prediction"):
             np.testing.assert_allclose(getattr(got, field), getattr(want, field), rtol=5e-3, atol=5e-3,
                                        err_msg=f"{mode} {k} {field}")
-    kernel = ops.SPLIT if mode == "mapping" else CLUSTER
-    assert ops.admm_chunk.launches.get(kernel, 0) >= 3
+    # the mapping control (horizon 100) as the racing one: a cluster on
+    # the box block
+    assert ops.admm_chunk.launches.get(CLUSTER_BOX, 0) >= 3
     assert controllers[cuda_device].mpc.horizon == (100 if mode == "mapping" else 50)
 
 
@@ -829,7 +1005,7 @@ def test_agent_drive_on_card_matches_cpu(cuda_device, tmp_path, monkeypatch):
     finally:
         for agent in agents.values():
             agent.teardown()
-    assert ops.admm_chunk.launches.get(CLUSTER, 0) >= 30
+    assert ops.admm_chunk.launches.get(CLUSTER_BOX, 0) >= 30
     assert chain_edges.launches.get(TRACK_CHAIN_EDGES, 0) == 30
     assert sim.distance > 20.0
 
@@ -858,7 +1034,9 @@ def _raceline_inputs():
 
 @pytest.mark.cuda
 def test_raceline_on_card_matches_cpu_through_the_split_kernel(cuda_device):
-    from acmpc_tpu_torch.ops.admm_chunk import SPLIT
+    # since the box block the 586-point raceline's chunks run in a
+    # cluster; the split kernel takes the 1,953-point one
+    # (test_box_split_matches_both_references_on_card)
     from acmpc_tpu_torch.utils.raceline import offset_curvature, solve_raceline
 
     centre, half = _raceline_inputs()
@@ -867,7 +1045,7 @@ def test_raceline_on_card_matches_cpu_through_the_split_kernel(cuda_device):
     launches = dict(admm_chunk.launches)
     cpu = solve_raceline(centre, half, device="cpu")
     iterations = sum(int(s.iterations) for s in card.solutions)
-    assert launches == {SPLIT: iterations // 25}
+    assert launches == {CLUSTER_BOX: iterations // 25}
     assert all(bool(s.solved) for s in card.solutions)
     a, b = card.alpha.cpu().numpy(), cpu.alpha.numpy()
     # what the QPs' stopping rule fixes (tests/test_torch_raceline.py):

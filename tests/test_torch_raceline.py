@@ -37,7 +37,7 @@ import torch
 
 from acmpc_tpu_torch.cli import raceline as cli
 from acmpc_tpu_torch.localise.track_map import load_track_map
-from acmpc_tpu_torch.ops.admm_chunk import plan_chunk, split_layout
+from acmpc_tpu_torch.ops.admm_chunk import plan_chunk, split_layout, split_plan
 from acmpc_tpu_torch.utils import raceline as rl
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -188,8 +188,8 @@ def test_raceline_cuts_corners():
 
 @pytest.mark.parametrize("n_points", [586, 1953])
 def test_raceline_qps_take_the_split_kernel(n_points):
-    # n = m = N: no cluster holds the operator, so every chunk of a
-    # raceline runs the split kernel with 16 CTAs
+    # n = m = N. As a dense operator (W and A, 3 N^2 floats) no cluster
+    # holds it, and the split kernel would take it with 16 CTAs
     plan = plan_chunk(n_points, n_points, 1)
     assert (plan.variant, plan.cluster) == ("split", 16)
     lay = split_layout(n_points, n_points, 16)
@@ -198,6 +198,17 @@ def test_raceline_qps_take_the_split_kernel(n_points):
     # than the default 8 KB stage, which is then raised)
     assert lay.stage_floats >= 2 * n_points + 3
     assert 0 < lay.res_w <= lay.rows_w
+    # the raceline hands the solver A = I as the box block, so its chunks
+    # take W_s = K^-1 (N^2 floats): a cluster of 8 at 586 points; at 1,953
+    # the split kernel, streaming W_s alone
+    box = plan_chunk(n_points, n_points, 1, n_points)
+    if n_points == 586:
+        assert (box.variant, box.cluster, box.box) == ("cluster", 8, True)
+    else:
+        assert box == split_plan(n_points, n_points, 16, n_b=n_points)
+        box_lay = split_layout(n_points, n_points, 16, n_b=n_points)
+        assert box_lay.stage_floats >= n_points + 3 and box_lay.rows_a == 0
+        assert 0 < box_lay.res_w < box_lay.rows_w
 
 
 def test_raceline_defaults_to_cuda():
