@@ -71,6 +71,7 @@ from acmpc_tpu_torch.dashboard.server import FEED_NAMES
 from acmpc_tpu_torch.geometry.tracks import offset_boundaries
 from acmpc_tpu_torch.localise.track_map import TrackMap, load_track_map
 from acmpc_tpu_torch.ops import admm_chunk as chunk_ops
+from acmpc_tpu_torch.ops import graph_loop
 from acmpc_tpu_torch.ops import track_chain as chain_ops
 from acmpc_tpu_torch.perception.camera import CameraInfo
 from acmpc_tpu_torch.runtime.agent import Agent
@@ -141,13 +142,17 @@ def mapping_config(map_path: str):
 
 
 def _launches() -> dict:
-    return dict(collections.Counter(chunk_ops.admm_chunk.launches) + collections.Counter(chain_ops.chain_edges.launches))
+    graph_loop.settle_launches()  # the replays' loop-body launches
+    counters = (chunk_ops.admm_chunk.launches, chain_ops.chain_edges.launches, graph_loop.device_while.launches)
+    return dict(sum((collections.Counter(c) for c in counters), collections.Counter()))
 
 
 def _clear_launches() -> None:
+    graph_loop.settle_launches()
     chunk_ops.admm_chunk.launches.clear()
     chain_ops.chain_edges.launches.clear()
     chain_ops.chain_scan.launches.clear()
+    graph_loop.device_while.launches.clear()
 
 
 def _other_chunk_kernels(launches: dict) -> dict:

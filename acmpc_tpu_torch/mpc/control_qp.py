@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from acmpc_tpu_torch.device import constant
 from acmpc_tpu_torch.dynamics.spatial_bicycle import SpatialBicycleModel, linearise
 from acmpc_tpu_torch.geometry.path import ReferencePath
 from acmpc_tpu_torch.qp.admm import ADMMConfig, QPSolution, _solve_box_qp
@@ -59,7 +60,9 @@ def assemble_control_qp(
     n_eq = NX * (n + 1)
 
     def vec(v):
-        return torch.as_tensor(v, dtype=dtype, device=device)
+        if isinstance(v, torch.Tensor):
+            return v.to(dtype=dtype, device=device)
+        return constant(v, dtype, device)
 
     f, A_blocks, B_blocks = linearise(
         path, time_mode="exact" if time_mode == "exact" else "reference"
@@ -68,8 +71,7 @@ def assemble_control_qp(
 
     # --- equality rows: [A_x | B_u] ------------------------------------
     A_eq = torch.zeros(*lead, n_eq, n_var, dtype=dtype, device=device)
-    diag = torch.arange(n_eq, device=device)
-    A_eq[..., diag, diag] = -1.0
+    torch.diagonal(A_eq, dim1=-2, dim2=-1).fill_(-1.0)
     k = torch.arange(n, device=device)
     rows = (NX * (k + 1))[:, None, None] + torch.arange(NX, device=device)[None, :, None]
     cols_a = (NX * k)[:, None, None] + torch.arange(NX, device=device)[None, None, :]

@@ -11,12 +11,13 @@ step writes its scenario dimension out in front of every tensor.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
 import torch
 
-from acmpc_tpu_torch.device import resolve_device
+from acmpc_tpu_torch.device import resolve_device, scalar
 from acmpc_tpu_torch.dynamics.spatial_bicycle import SpatialBicycleModel, s2t, t2s
 from acmpc_tpu_torch.geometry.path import ReferencePath, construct_waypoints
 from acmpc_tpu_torch.mpc.control_qp import (
@@ -25,6 +26,7 @@ from acmpc_tpu_torch.mpc.control_qp import (
     assemble_control_qp,
     control_qp_sizes,
 )
+from acmpc_tpu_torch.ops.graph_loop import GraphCache
 from acmpc_tpu_torch.qp.admm import ADMMConfig, QPSolution, _solve_box_qp
 from acmpc_tpu_torch.qp.batched import _solve_box_qp_batched
 from acmpc_tpu_torch.qp.speed_profile import (
@@ -107,7 +109,7 @@ def shift_warm_start(state: MPCState, k, horizon: int) -> MPCState:
     per scenario. The published commands and prediction are untouched.
     """
     n = horizon - 1
-    k = torch.as_tensor(k, device=state.qp_x.device)
+    k = scalar(k, state.qp_x.device)
 
     def roll_stages(flat, width, n_stages):
         rows = flat.reshape(*flat.shape[:-1], n_stages, width)
@@ -174,7 +176,7 @@ class SpatialMPC:
     def _tensor(self, value, dtype=None) -> torch.Tensor:
         if isinstance(value, np.ndarray) and not value.flags.writeable:
             value = value.copy()  # torch refuses to share read-only memory
-        return torch.as_tensor(value, dtype=dtype or self.dtype, device=self.device)
+        return scalar(value, self.device, dtype or self.dtype)
 
     def initial_state(self, batch: int | None = None) -> MPCState:
         """Zero carry, unbatched or with a leading scenario dim ``batch``."""
@@ -310,6 +312,51 @@ class SpatialMPC:
         )
         control_sol = _solve_box_qp(*qp, self.admm, x0=state.qp_x, y0=state.qp_y, box=True)
         return self._extract(state, path, speed_sol, control_sol)
+
+    @functools.cached_property
+    def jitted_get_control(self):
+        """``get_control`` as a compiled entry: the counterpart of JAX's
+        ``jax.jit(get_control)``, with its signature. On the card, the
+        first call for an input signature (shapes, dtypes, device)
+        captures the whole step as one CUDA graph (``ops/graph_loop``):
+        prepare, the factorisation, the QP's chunk loop as one WHILE node
+        that the card runs until the residuals pass or ``max_iter``, and
+        the extract. Later calls copy the inputs into the graph's buffers,
+        replay it and return clones of its outputs: no host read until
+        the caller reads a result. Every input (the state's warm starts,
+        the reference path, ``v_max_runtime``, ``is_localised``,
+        ``offset``) is a device tensor of the graph; a Python number is
+        filled on the device. A capture that fails raises. On the CPU
+        the step runs eagerly."""
+        state_fields = [f.name for f in dataclasses.fields(MPCState)]
+        diag_fields = [f.name for f in dataclasses.fields(MPCDiagnostics)]
+        n_state = len(state_fields)
+
+        def step(*flat):
+            state = MPCState(*flat[:n_state])
+            new_state, diags = self.get_control(state, *flat[n_state:])
+            return [getattr(new_state, f) for f in state_fields] + [
+                getattr(diags, f) for f in diag_fields
+            ]
+
+        graphs = GraphCache(step, "SpatialMPC.get_control")
+
+        def jitted_get_control(
+            state: MPCState, reference_path, v_max_runtime=None, is_localised=False, offset=0.0
+        ) -> tuple[MPCState, MPCDiagnostics]:
+            if v_max_runtime is None:
+                v_max_runtime = self.config.constraints.v_max
+            out = graphs(
+                *(getattr(state, f) for f in state_fields),
+                self._tensor(reference_path),
+                self._tensor(v_max_runtime),
+                self._tensor(is_localised, torch.bool),
+                self._tensor(offset),
+            )
+            return MPCState(*out[:n_state]), MPCDiagnostics(*out[n_state:])
+
+        jitted_get_control.graphs = graphs
+        return jitted_get_control
 
     def batched_get_control(
         self,

@@ -66,6 +66,7 @@ import functools
 import torch
 
 from acmpc_tpu_torch.ops.cuda_build import build_library
+from acmpc_tpu_torch.ops.graph_loop import count_launch
 
 CLUSTER = "admm_chunk_cluster"
 CLUSTER_ACTIVE = "admm_chunk_cluster[active]"
@@ -469,7 +470,8 @@ def _launch(
     plan: ChunkPlan, W, A, c0, rho, l, u, x, z, y, n_iters, alpha, active=None, g=None, sigma=None
 ):
     """Launch ``plan``'s kernel on checked CUDA tensors and count it in
-    ``admm_chunk.launches``; returns new (x, z, y). Raises where the
+    ``admm_chunk.launches`` (under a capture, at each replay that runs
+    it: ``graph_loop.count_launch``); returns new (x, z, y). Raises where the
     plan does not take the operator's form (the box block or dense), or
     where the card cannot schedule the cluster or refuses the launch."""
     B, n = x.shape
@@ -509,7 +511,7 @@ def _launch(
     name = kernel_name(plan, active is not None)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    admm_chunk.launches[name] += 1
+    count_launch(admm_chunk.launches, name)
     return x_out, z_out, y_out
 
 

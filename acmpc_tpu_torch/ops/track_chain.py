@@ -37,6 +37,7 @@ import functools
 import torch
 
 from acmpc_tpu_torch.ops.cuda_build import build_library
+from acmpc_tpu_torch.ops.graph_loop import count_launch
 
 TRACK_CHAIN_SCAN = "track_chain_scan"
 SOURCE = "track_chain.cu"
@@ -263,7 +264,8 @@ def _edges_library(device_index: int, stamps: bool = False) -> ctypes.CDLL:
 
 def _launch_edges(mask: torch.Tensor, bonnet_row: int, gap_tolerance: int, band: int, return_mask: bool):
     """Launch the fused kernel on a CUDA tensor and count it in
-    ``chain_edges.launches``; anything else raises."""
+    ``chain_edges.launches`` (under a capture, at each replay:
+    ``graph_loop.count_launch``); anything else raises."""
     band, gap = _edges_arguments(mask, gap_tolerance, band)
     if mask.device.type != "cuda":
         raise ValueError(f"the chain-edges kernel takes a CUDA tensor, not one on {mask.device}")
@@ -285,7 +287,7 @@ def _launch_edges(mask: torch.Tensor, bonnet_row: int, gap_tolerance: int, band:
         )
     if err != 0:
         raise RuntimeError(f"track_chain_edges kernel launch failed: CUDA error {err}")
-    chain_edges.launches[TRACK_CHAIN_EDGES] += 1
+    count_launch(chain_edges.launches, TRACK_CHAIN_EDGES)
     return (left, right, valid, selected) if return_mask else (left, right, valid)
 
 

@@ -4,7 +4,11 @@ polylines.
 Counterpart of ``acmpc_tpu/perception/perceiver.py``. ``_run_pipeline``
 chains segmentation and extraction on the device: the mask stays there
 between the stages and nothing is read back, so a caller can queue the
-control step behind it. ``perceive`` adds the host steps kept from the
+control step behind it. ``_pipeline`` is it compiled, as JAX's
+``jax.jit(_run_pipeline)``: on the card one CUDA graph captured at the
+first frame of each shape (``ops/graph_loop.GraphCache``), the FPN and
+the chain-edges kernel in it. ``perceive`` calls it, and adds the host
+steps kept from the
 original stack: the JPEG round trip that matches the training
 distribution and the resize guard, both through OpenCV, imported when
 first used (``ImportError`` where it is not installed).
@@ -16,9 +20,11 @@ import numpy as np
 import torch
 
 from acmpc_tpu_torch.config.schema import PerceptionConfig
+from acmpc_tpu_torch.ops.graph_loop import GraphCache
 from acmpc_tpu_torch.perception.camera import CameraInfo
 from acmpc_tpu_torch.perception.segmentation import TrackSegmenter
 from acmpc_tpu_torch.perception.tracks import (
+    TRACK_KEYS,
     TrackExtractionConfig,
     TrackLimitExtractor,
 )
@@ -38,6 +44,19 @@ class Perceiver:
         self.extractor = TrackLimitExtractor(
             TrackExtractionConfig.from_config(cfg), self.camera, self.device
         )
+
+        def flat(image):
+            drivable, semantics, tracks = self._run_pipeline(image)
+            return [drivable, semantics, *(tracks[k] for k in TRACK_KEYS)]
+
+        graphs = GraphCache(flat, "Perceiver._run_pipeline")
+
+        def pipeline(image: torch.Tensor):
+            out = graphs(image)
+            return out[0], out[1], dict(zip(TRACK_KEYS, out[2:]))
+
+        pipeline.graphs = graphs
+        self._pipeline = pipeline
 
     @torch.no_grad()
     def _run_pipeline(self, image: torch.Tensor):
@@ -73,7 +92,7 @@ class Perceiver:
         """Full pipeline on one frame. Returns a dict with the drivable
         mask, semantics and BEV track polylines (device tensors)."""
         image = self._ensure_size(self._encode_decode_image(image))
-        drivable, semantics, tracks = self._run_pipeline(
+        drivable, semantics, tracks = self._pipeline(
             torch.as_tensor(image, device=self.device)
         )
         return {

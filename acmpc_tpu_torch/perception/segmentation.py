@@ -9,8 +9,10 @@ autocast), so the casts sit where the JAX package has them: the stored
 then divided by 255.
 
 ``TrackSegmenterAOT`` (the JAX package's ahead-of-time compiled
-variant) runs one warm frame at construction instead, so the first real
-frame pays no cuDNN algorithm choice.
+variant) captures the forward as a CUDA graph at construction for the
+configured frame shape (``ops/graph_loop.GraphCache``: one eager frame
+chooses cuDNN's algorithms, then the capture), and replays it for every
+frame; on the CPU it runs one warm frame.
 
 Deliberate difference from the JAX package: a missing checkpoint raises
 ``FileNotFoundError``; it never falls back to random weights. Callers
@@ -33,6 +35,7 @@ from acmpc_tpu_torch.models.fpn_resnet18 import (
     flax_tree_from_state_dict,
     state_dict_from_flax,
 )
+from acmpc_tpu_torch.ops.graph_loop import GraphCache
 
 PRECISION = {
     "full": torch.float32,
@@ -112,9 +115,10 @@ class TrackSegmenter:
 
 
 class TrackSegmenterAOT(TrackSegmenter):
-    """The warmed variant: one frame of the configured shape runs at
-    construction, so that cuDNN's algorithm choice and the first-use
-    allocations happen before the first real frame."""
+    """The compiled variant: the forward of the configured frame shape is
+    captured as a CUDA graph at construction (the counterpart of JAX's
+    ``jit(_apply).lower(...).compile()``), and ``segment_drivable_area``
+    replays it."""
 
     def __init__(
         self,
@@ -123,9 +127,15 @@ class TrackSegmenterAOT(TrackSegmenter):
         device: torch.device | str | None = None,
     ):
         super().__init__(cfg, variables, device)
+        self._compiled = GraphCache(self._apply, "TrackSegmenter._apply")
         dummy = torch.zeros(
             (self._height, self._width, 3), dtype=torch.uint8, device=self.device
         )
-        self._apply(dummy)
+        self._compiled(dummy)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def segment_drivable_area(self, image):
+        """(drivable_mask, semantics) of one (H, W, 3) uint8 frame, through
+        the captured forward."""
+        return tuple(self._compiled(torch.as_tensor(image, device=self.device)))

@@ -15,13 +15,15 @@ to the host.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from acmpc_tpu_torch.config.schema import PerceptionConfig
-from acmpc_tpu_torch.device import resolve_device
+from acmpc_tpu_torch.device import resolve_device, scalar
 # scan_rows and row_edge_columns are also this module's API, as in the JAX package
+from acmpc_tpu_torch.ops.graph_loop import GraphCache
 from acmpc_tpu_torch.ops.track_chain import chain_edges, row_edge_columns, scan_rows  # noqa: F401
 from acmpc_tpu_torch.perception.camera import CameraInfo
 
@@ -110,8 +112,8 @@ def _linspace(start, stop, num: int, device) -> torch.Tensor:
     """``jnp.linspace`` on fp32 endpoints that may be device scalars:
     start (1 - i/div) + stop i/div, with the end point exact; nothing is
     read back."""
-    start = torch.as_tensor(start, dtype=torch.float32, device=device)
-    stop = torch.as_tensor(stop, dtype=torch.float32, device=device)
+    start = scalar(start, device, torch.float32)
+    stop = scalar(stop, device, torch.float32)
     if num == 1:
         return start[None]
     div = num - 1
@@ -144,7 +146,8 @@ def masked_polyfit_track(points, weights, n_out: int):
     y500 = _linspace(0.0, y_max, 500, device)
     x500 = coef[0] * y500**2 + coef[1] * y500 + coef[2]
     start = torch.argmin(x500**2 + y500**2)
-    y_start = y500[start]
+    # a 1-element index: a 0-d one would be read back to the host
+    y_start = y500[start.reshape(1)][0]
 
     y_new = _linspace(y_start, y_max, n_out, device)
     x_new = coef[0] * y_new**2 + coef[1] * y_new + coef[2]
@@ -156,9 +159,15 @@ def masked_polyfit_track(points, weights, n_out: int):
     return torch.where(any_valid, fitted, stub)
 
 
+# the keys of ``TrackLimitExtractor.extract``'s result, in the order a
+# captured graph returns them
+TRACK_KEYS = ("left", "right", "centre", "left_raw", "left_raw_mask", "right_raw", "right_raw_mask")
+
+
 class TrackLimitExtractor:
     """Device-side mask -> {left, right, centre} BEV polylines. Construct
-    once per (config, camera); call ``extract``."""
+    once per (config, camera); call ``extract``, or ``jitted()``'s
+    callable."""
 
     def __init__(
         self,
@@ -218,6 +227,28 @@ class TrackLimitExtractor:
             "right_raw": right_pts,
             "right_raw_mask": right_valid,
         }
+
+
+    def jitted(self):
+        """``extract`` as a compiled entry (JAX's ``jax.jit(self.extract)``):
+        on the card a CUDA graph captured at the first mask of each shape
+        and dtype, the chain-edges kernel in it, replayed after; on the
+        CPU ``extract`` itself. Every call returns the same callable, so
+        its graphs are kept."""
+        return self._jitted
+
+    @functools.cached_property
+    def _jitted(self):
+        def flat(mask):
+            tracks = self.extract(mask)
+            return [tracks[k] for k in TRACK_KEYS]
+
+        graphs = GraphCache(flat, "TrackLimitExtractor.extract")
+
+        def extract(mask: torch.Tensor) -> dict:
+            return dict(zip(TRACK_KEYS, graphs(mask)))
+
+        return extract
 
 
 def maybe_interpolate_track_limit(

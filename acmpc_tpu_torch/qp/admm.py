@@ -11,8 +11,11 @@ infeasibility certificate between chunks.
 
 Every iteration chunk goes through ``ops/admm_chunk.py`` (the CUDA kernel
 on the card, its plain PyTorch version on the CPU), also for a single
-scenario. The convergence loop runs on the host: one device-to-host read
-of the ``done`` flag per chunk.
+scenario. A single scenario with a fixed rho runs its chunk loop through
+``ops/graph_loop.device_while``: eagerly one host read of the ``done``
+flag per chunk, under a CUDA graph capture (``SpatialMPC.
+jitted_get_control``) one WHILE node that the card runs with no host
+read. Adaptive rho, and the scenario axis, read the host once a chunk.
 
 Callers that build A as ``[A_d; I]`` (its last n rows the identity over
 the variables: the control QP, the raceline) solve through
@@ -41,6 +44,7 @@ import dataclasses
 import torch
 
 from acmpc_tpu_torch.ops.admm_chunk import admm_chunk
+from acmpc_tpu_torch.ops.graph_loop import device_while
 
 _INF = 1e30  # bounds with |value| >= _INF/1e4 are treated as loose
 _MIN_SCALING = 1e-4
@@ -370,7 +374,11 @@ def _solve_one(P, q, A, l, u, cfg, x0, y0, box=False) -> tuple[QPSolution, torch
         rho_vec = _rho_vector(rho, ls, us)
         return rho_vec, _build_operator(_factor(Ps, As, rho_vec, sigma), As, qs, sigma, A_d)
 
-    rho = torch.tensor(cfg.rho, dtype=dtype, device=q.device)
+    def full(value, dtype):
+        # filled on the device: a copy from host memory cannot be captured
+        return torch.full((), value, dtype=dtype, device=q.device)
+
+    rho = full(cfg.rho, dtype)
     rho_vec, op = operator(rho)
 
     if cfg.fixed_iterations is not None:
@@ -381,9 +389,7 @@ def _solve_one(P, q, A, l, u, cfg, x0, y0, box=False) -> tuple[QPSolution, torch
             y=y * e / c,
             z=z / e,
             status=_status(converged, near),
-            iterations=torch.tensor(
-                cfg.fixed_iterations, dtype=torch.int32, device=q.device
-            ),
+            iterations=full(cfg.fixed_iterations, torch.int32),
             r_prim=r_p,
             r_dual=r_d,
         ), rho
@@ -400,30 +406,56 @@ def _solve_one(P, q, A, l, u, cfg, x0, y0, box=False) -> tuple[QPSolution, torch
         eps = cfg.eps_prim_inf * torch.clamp(dy_u_norm, min=1e-30)
         return (dy_u_norm > 1e-12) & (at_dy <= eps) & (support <= -eps)
 
-    it = 0
-    done = False
-    r_p = r_d = torch.tensor(float("inf"), dtype=dtype, device=q.device)
-    status = torch.tensor(STATUS_MAX_ITER, dtype=torch.int32, device=q.device)
-    while not done and it < cfg.max_iter:
+    def check(x, z, y, rho_vec, op):
+        """One chunk and its residual check: the new iterates, the
+        residuals, the status, whether the solve is done (converged or
+        certified infeasible) and the adaptive-rho ratio."""
         y_before = y
         x, z, y = chunk(x, z, y, rho_vec, op, cfg.check_every)
-        it += cfg.check_every
         r_p, r_d, converged, near, ratio = residuals(x, y, z)
         prim_inf = primal_infeasibility_certificate(y - y_before) & ~converged
-        status = _status(converged, near, prim_inf)
-        done = bool(converged | prim_inf)  # host read, once per chunk
-        if cfg.adaptive_rho and not done:
-            tol = cfg.adaptive_rho_tol
-            if bool((ratio > tol) | (ratio < 1.0 / tol)):
-                rho = torch.clamp(rho * ratio, 1e-6, 1e6)
-                rho_vec, op = operator(rho)
+        return x, z, y, r_p, r_d, _status(converged, near, prim_inf), converged | prim_inf, ratio
+
+    if not cfg.adaptive_rho:
+        # the chunk loop as JAX's lax.while_loop: the stopping test stays
+        # on the device (one WHILE node under a CUDA graph capture)
+        def body(carry):
+            x, z, y, it = carry[:4]
+            x, z, y, r_p, r_d, status, done, _ = check(x, z, y, rho_vec, op)
+            return x, z, y, it + cfg.check_every, r_p, r_d, status, done
+
+        def cond(carry):
+            return ~carry[-1] & (carry[3] < cfg.max_iter)
+
+        inf = float("inf")
+        carry = (
+            x, z, y, full(0, torch.int32), full(inf, dtype), full(inf, dtype),
+            full(STATUS_MAX_ITER, torch.int32), full(False, torch.bool),
+        )
+        x, z, y, iterations, r_p, r_d, status, _ = device_while(cond, body, carry)
+    else:
+        # adaptive rho refactors between chunks: the host reads the flags
+        it = 0
+        done = False
+        r_p = r_d = full(float("inf"), dtype)
+        status = full(STATUS_MAX_ITER, torch.int32)
+        while not done and it < cfg.max_iter:
+            x, z, y, r_p, r_d, status, done_t, ratio = check(x, z, y, rho_vec, op)
+            it += cfg.check_every
+            done = bool(done_t)  # host read, once per chunk
+            if not done:
+                tol = cfg.adaptive_rho_tol
+                if bool((ratio > tol) | (ratio < 1.0 / tol)):
+                    rho = torch.clamp(rho * ratio, 1e-6, 1e6)
+                    rho_vec, op = operator(rho)
+        iterations = full(it, torch.int32)
 
     return QPSolution(
         x=x * d,
         y=y * e / c,
         z=z / e,
         status=status,
-        iterations=torch.tensor(it, dtype=torch.int32, device=q.device),
+        iterations=iterations,
         r_prim=r_p,
         r_dual=r_d,
     ), rho

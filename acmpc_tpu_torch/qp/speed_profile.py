@@ -26,6 +26,7 @@ import math
 
 import torch
 
+from acmpc_tpu_torch.device import scalar
 from acmpc_tpu_torch.ops.tridiag import tridiag_solve
 from acmpc_tpu_torch.ops.tridiag_sharded import tridiag_solve_sharded
 from acmpc_tpu_torch.qp.admm import STATUS_MAX_ITER, STATUS_SOLVED, ADMMConfig
@@ -71,7 +72,7 @@ class SpeedProfileSolution:
 def _per_scenario(value, like: torch.Tensor) -> torch.Tensor:
     """A scalar or batch-shaped ``(...)`` value as a tensor that
     broadcasts against ``like`` of shape ``(..., N)``."""
-    t = torch.as_tensor(value, device=like.device)
+    t = scalar(value, like.device)
     if t.dtype.is_floating_point:
         t = t.to(like.dtype)
     return t[..., None] if t.dim() > 0 else t
@@ -288,7 +289,7 @@ def _bounds(kappas, constraints, v_max_runtime, localised, end_vel):
     """(v_hi, q = -v_hi) of one profile, ``v_max_runtime`` as a tensor."""
     v_hi_std = velocity_upper_bounds(kappas, constraints, v_max_runtime, end_vel)
     v_hi_loc = torch.ones_like(kappas) * v_max_runtime
-    v_hi = torch.where(torch.as_tensor(localised, device=kappas.device), v_hi_loc, v_hi_std)
+    v_hi = torch.where(scalar(localised, kappas.device), v_hi_loc, v_hi_std)
     return v_hi, -v_hi
 
 

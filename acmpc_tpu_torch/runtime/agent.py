@@ -201,7 +201,7 @@ class Agent:
     def _update_perception(self, obs: ObservationDict, raw: Dict):
         if self._use_oracle_perception and "drivable_mask" in raw:
             mask = torch.as_tensor(raw["drivable_mask"], device=self.device)
-            tracks = self.perception.extractor.extract(mask)
+            tracks = self.perception.extractor.jitted()(mask)
             out = {
                 "centreline": tracks["centre"],
                 "left": tracks["left"],

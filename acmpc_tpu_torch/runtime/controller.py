@@ -231,7 +231,7 @@ class _ControlThread(threading.Thread):
         ref = np.stack([pts[:, 0], pts[:, 1], widths]).T
 
         state = self._states[id(mpc)]
-        new_state, diags = mpc.get_control(
+        new_state, diags = mpc.jitted_get_control(
             state,
             np.asarray(ref, np.float32),
             float(self._c.reference_speed),

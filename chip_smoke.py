@@ -8,12 +8,14 @@ and the CUDA toolkit:
 
 Phases, each printing one line:
   1. device: card name and power limit (nvidia-smi), torch/CUDA versions,
-     TF32 flags (must be off);
-  2. build: compiles the five kernel sources (csrc/admm_chunk.cu, the
+     TF32 flags (must be off), CUDA 12.4 or later in PyTorch's build and
+     the driver (conditional WHILE nodes);
+  2. build: compiles the six kernel sources (csrc/admm_chunk.cu, the
      cluster kernel; csrc/admm_chunk_split.cu, the split kernel;
      csrc/admm_chunk_stream.cu, the streaming kernel;
-     csrc/track_chain.cu, the chain scan; and csrc/track_chain_edges.cu,
-     the fused chain-edges kernel) side by side with nvcc into
+     csrc/track_chain.cu, the chain scan; csrc/track_chain_edges.cu,
+     the fused chain-edges kernel; and csrc/graph_loop.cu, the device
+     loop's condition kernel, which checks for CUDA 12.4) side by side with nvcc into
      build/torch_kernels/, and prints what ptxas reports of each kernel
      (registers, spills);
   3. kernel: each variant against the plain PyTorch version on random
@@ -208,6 +210,27 @@ Phases, each printing one line:
      sim frames (the shipped checkpoint's beside it), then the
      camera-to-command loop on it for 40 frames, gated as phase 10's; the
      shipped checkpoint's SHA-256 the same before and after.
+  17. the compiled entries (``ops/graph_loop.py``, ``csrc/graph_loop.cu``):
+     the loop kernel's row (a ``device_while`` counting to 1,000 captured:
+     the trips it counted and its launches exact, ms a trip against the
+     host loop's); 200 closed-loop B = 1 steps on monza's map
+     (``bench/graph_entries.py``) of the racing control (horizon 50) and
+     of the mapping control (horizon 100) through ``jitted_get_control``
+     against ``get_control``, state carried, every step's state,
+     diagnostics and window index bit-equal, with a step that runs to
+     ``max_iter`` and one that fails, and every run's launches exact (a
+     chunk a launch; the loop kernel once a replay and once a chunk); the
+     golden battery through ``jitted_get_control`` within 5e-3; three
+     replays under ``torch.cuda.set_sync_debug_mode("error")``; a capture
+     that reads the card raising; the perceiver's graph against eager at
+     1280x736 bf16 on 8 sim frames, bit-equal, and ``TrackSegmenterAOT``
+     against the eager forward on them; then eager against
+     captured in turns on two fixed CPU cores, 500 steps or frames each:
+     wall p50/p99, host syncs, launches, busy and idle share a call,
+     chunks a step, capture seconds and the graph's pool. Phases 10, 12
+     and 16 run the captured entries too (the loop's frame is
+     ``_pipeline`` then ``jitted_get_control``; the agent's control
+     thread calls ``jitted_get_control``, its oracle path ``jitted()``).
 Then the kernels line, the card line and, last, the result line. Any
 failure raises and the exit code is not 0. Without a CUDA device it
 exits with code 2 and prints no result.
@@ -344,6 +367,15 @@ TRAIN_SYNCED_STEPS = 10
 TRAIN_PROFILE_STEPS = 20
 XLA_STEP_FLOP = 377.3e9
 SHIPPED_FPN = ROOT / "data" / "models" / "segmentation" / "synthetic_fpn.msgpack"
+# phase 17: closed-loop steps of each compiled control step against eager,
+# frames of the perceiver's graph against eager, and steps (frames) a
+# timed block (two blocks each, in turns)
+COMPILED_STEPS = 200
+COMPILED_FRAMES = 8
+COMPILED_TIMED = 250
+# a trip of the loop kernel reads the flag (1 byte) and the trip count (8)
+# and writes the count (8)
+LOOP_TRIP_BYTES = 17
 
 
 def emit(phase: str, payload: dict) -> None:
@@ -508,6 +540,16 @@ def phase_device() -> dict:
     }
     if info["matmul_allow_tf32"] or info["cudnn_allow_tf32"]:
         raise RuntimeError("TF32 is on")
+    # the compiled entries' WHILE nodes need CUDA 12.4 in PyTorch's build
+    # and in the driver
+    import ctypes
+
+    driver = ctypes.c_int(0)
+    ctypes.CDLL("libcuda.so.1").cuDriverGetVersion(ctypes.byref(driver))
+    info["driver_cuda"] = driver.value
+    built = tuple(int(v) for v in torch.version.cuda.split(".")[:2])
+    if built < (12, 4) or driver.value < 12040:
+        raise RuntimeError(f"CUDA 12.4 or later needed: PyTorch built for {torch.version.cuda}, driver {driver.value}")
     emit("phase 1 device", info)
     return info
 
@@ -518,18 +560,23 @@ def phase_build() -> dict:
     import torch
 
     import acmpc_tpu_torch.ops.admm_chunk as ops
+    import acmpc_tpu_torch.ops.graph_loop as graph_loop
     import acmpc_tpu_torch.ops.track_chain as chain
     from acmpc_tpu_torch.ops.cuda_build import BUILD_DIR
 
     dev = torch.cuda.current_device()
     t0 = time.perf_counter()
-    # every source compiles at once: the chunk kernels' three, the chain's two
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        builds = [pool.submit(f, dev) for f in (ops._libraries, chain._library, chain._edges_library)]
+    # every source compiles at once: the chunk kernels' three, the chain's
+    # two, the graph loop's
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        builds = [
+            pool.submit(f, dev)
+            for f in (ops._libraries, chain._library, chain._edges_library, graph_loop._library)
+        ]
         for done in builds:
             done.result()
     info = {
-        "sources": sorted([*ops.SOURCES.values(), chain.SOURCE, chain.EDGES_SOURCE]),
+        "sources": sorted([*ops.SOURCES.values(), chain.SOURCE, chain.EDGES_SOURCE, graph_loop.SOURCE]),
         "build_s": time.perf_counter() - t0,
     }
     # what ptxas said of each kernel built in this run
@@ -1078,14 +1125,21 @@ def phase_mapping_single() -> dict:
 def _counted(fn):
     """``fn()`` with every kernel's launch count set to 0 just before
     it; returns (its result, the counts just after)."""
+    from acmpc_tpu_torch.ops import graph_loop
     from acmpc_tpu_torch.ops.admm_chunk import admm_chunk
     from acmpc_tpu_torch.ops.track_chain import chain_edges, chain_scan
 
+    graph_loop.settle_launches()  # the replays' loop bodies, before the clear
     admm_chunk.launches.clear()
     chain_scan.launches.clear()
     chain_edges.launches.clear()
+    graph_loop.device_while.launches.clear()
     out = fn()
-    return out, {**admm_chunk.launches, **chain_scan.launches, **chain_edges.launches}
+    graph_loop.settle_launches()
+    counts = {
+        **admm_chunk.launches, **chain_scan.launches, **chain_edges.launches, **graph_loop.device_while.launches
+    }
+    return out, {name: n for name, n in counts.items() if n}
 
 
 def _sub_grid(grid, n: int):
@@ -1531,10 +1585,12 @@ def phase_perception() -> dict:
         raise RuntimeError(f"perception loop: solve success {run['solve_success']}")
     if not run["max_offtrack_m"] < loop.HALF_WIDTH:
         raise RuntimeError(f"perception loop: the car left the track by {run['max_offtrack_m']} m")
-    # one fused extraction per frame, plus the untimed warm frame; the scan
-    # kernel is on no path
-    if launches.get(chain.TRACK_CHAIN_EDGES, 0) != run["frames"] + 1 or chain.TRACK_CHAIN_SCAN in launches:
-        raise RuntimeError(f"perception loop: chain launches {launches} for {run['frames']} + 1 frames")
+    # one fused extraction per frame, plus the untimed warm frame (replays
+    # of the pipeline's graph, which the per-frame timing captured); the
+    # scan kernel is on no path
+    warm = 1 + run["captured_warm_frame"]
+    if launches.get(chain.TRACK_CHAIN_EDGES, 0) != run["frames"] + warm or chain.TRACK_CHAIN_SCAN in launches:
+        raise RuntimeError(f"perception loop: chain launches {launches} for {run['frames']} + {warm} frames")
     if launches.get(CLUSTER_BOX, 0) == 0:
         raise RuntimeError(f"perception loop never launched {CLUSTER_BOX}: {launches}")
     info["loop"] = run
@@ -2485,8 +2541,11 @@ def phase_training() -> dict:
         raise RuntimeError(f"trained checkpoint's loop: solve success {loop_run['solve_success']}")
     if not loop_run["max_offtrack_m"] < loop.HALF_WIDTH:
         raise RuntimeError(f"trained checkpoint's loop: the car left the track by {loop_run['max_offtrack_m']} m")
-    if launches.get(chain.TRACK_CHAIN_EDGES, 0) != loop_run["frames"] + 1 or launches.get(CLUSTER_BOX, 0) == 0:
-        raise RuntimeError(f"trained checkpoint's loop: launches {launches} for {loop_run['frames']} + 1 frames")
+    # the warm frame captures the new perceiver's graph: its warm-up
+    # launches the chain-edges kernel once more
+    warm = 1 + loop_run["captured_warm_frame"]
+    if launches.get(chain.TRACK_CHAIN_EDGES, 0) != loop_run["frames"] + warm or launches.get(CLUSTER_BOX, 0) == 0:
+        raise RuntimeError(f"trained checkpoint's loop: launches {launches} for {loop_run['frames']} + {warm} frames")
     if _sha256(SHIPPED_FPN) != shipped_sha:
         raise RuntimeError("the shipped checkpoint changed during the training phase")
     info["checkpoint"] = {
@@ -2505,20 +2564,136 @@ def phase_training() -> dict:
     return info
 
 
+def phase_compiled() -> dict:
+    """The compiled entries (``ops/graph_loop.py``): the loop kernel's
+    row; 200 closed-loop B = 1 steps of the racing (horizon 50) and the
+    mapping (horizon 100) control through ``jitted_get_control`` against
+    ``get_control``, bit-equal, with a step that runs to ``max_iter`` and
+    a step that fails, the replays' launches exact; the golden battery
+    through ``jitted_get_control``; a replay with host synchronisations an
+    error; a capture that reads the card raising; the perceiver's graph
+    against eager at 1280x736 bf16; the eager-against-captured timings."""
+    import torch
+
+    from acmpc_tpu_torch.bench import graph_entries as ge
+    from acmpc_tpu_torch.bench import perception_loop as loop
+    from acmpc_tpu_torch.geometry.tracks import battery
+    from acmpc_tpu_torch.ops import graph_loop
+    from acmpc_tpu_torch.perception.perceiver import Perceiver
+    from acmpc_tpu_torch.perception.segmentation import TrackSegmenterAOT
+
+    t_phase = time.perf_counter()
+    info: dict = {"cuda": graph_loop.cuda_versions()}
+    # the loop kernel: the trips it counted and its launches in a replay
+    info["loop"] = ge.loop_row()
+    if info["loop"]["max_abs_err"] != 0:
+        raise RuntimeError(f"device_while's trip count or launches are off: {info['loop']}")
+
+    # (a) the closed loops, eager against captured
+    launches = collections.Counter()
+    for mode in ("racing", "mapping"):
+        run = ge.compare_loops(mode, COMPILED_STEPS, DEVICE)
+        if not run["bit_equal"]:
+            raise RuntimeError(f"{mode}: captured steps differ from eager: {run['mismatches']}")
+        if run["max_iter_exits"] < 1 or run["unsolved_steps"] < 1:
+            raise RuntimeError(f"{mode}: no max_iter exit or no failed step: {run}")
+        for name in ("eager", "captured"):
+            got = run["launches"][name]
+            if got != run["launches_expected"][name]:
+                raise RuntimeError(f"{mode} {name}: launches {got}, expected {run['launches_expected'][name]}")
+        launches.update(run["launches"]["captured"])
+        info[f"{mode}_loop"] = run
+
+    # (b) the golden battery through the compiled step
+    golden = np.load(ROOT / "tests" / "fixtures" / "golden_controls.npz")
+    worst = 0.0
+    for track in TRACKS:
+        mpc = make_mpc(track, DEVICE)
+        v_cap = min(30.0, mpc.config.unlocalised_max_speed or 30.0)
+        for name, ref in battery(HORIZON).items():
+            key = f"{track}/{name}"
+            state, _ = mpc.jitted_get_control(mpc.initial_state(), ref, v_cap)
+            if bool(state.solved) != bool(golden[f"{key}/solved"]):
+                raise RuntimeError(f"{key}: compiled step's solved flag differs from the fixture")
+            if bool(state.solved):
+                for field in ("projected_control", "cum_time"):
+                    err = float(np.abs(getattr(state, field).cpu().numpy() - golden[f"{key}/{field}"]).max())
+                    worst = max(worst, err)
+    if not worst <= GOLDEN_TOL:
+        raise RuntimeError(f"compiled golden battery: max abs err {worst} > {GOLDEN_TOL}")
+    info["golden"] = {"windows": len(TRACKS) * len(battery(HORIZON)), "max_abs_err": worst, "tolerance": GOLDEN_TOL}
+
+    # (c) a replay synchronises nothing; (d) a capture that reads the card raises
+    mpc = ge.make_mpc("racing", DEVICE)
+    args = (
+        torch.as_tensor(ge.batch_sweep.mixed_refs(HORIZON, 1)[0], device=DEVICE),
+        torch.full((), 28.0, device=DEVICE),
+        torch.zeros((), dtype=torch.bool, device=DEVICE),
+        torch.zeros((), device=DEVICE),
+    )
+    state, _ = mpc.jitted_get_control(mpc.initial_state(), *args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            state, _ = mpc.jitted_get_control(state, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    probe = torch.ones(4, device=DEVICE)
+    try:
+        graph_loop.CapturedGraph(lambda x: [x * x.sum().item()], [probe], "a read")
+    except RuntimeError as err:
+        info["capture_with_a_read_raises"] = str(err).splitlines()[0][:160]
+    else:
+        raise RuntimeError("a capture that reads the card did not raise")
+    if not bool(state.solved) or not torch.equal(probe + 1, torch.full((4,), 2.0, device=DEVICE)):
+        raise RuntimeError("the card after the sync-free replays and the failed capture")
+
+    # (e) the perceiver's graph against eager at the training camera
+    cfg = loop.perception_config(precision="bf16")
+    perc = Perceiver(cfg, device=DEVICE)
+    centre, left, right, _ = loop.circuit()
+    frames, _ = loop.sim_frames(loop.make_sim(cfg, centre, left, right), centre, COMPILED_FRAMES)
+    frames = [torch.as_tensor(f, device=DEVICE) for f in frames]
+    info["perceiver"] = ge.compare_frames(perc, frames)
+    if not info["perceiver"]["bit_equal"]:
+        raise RuntimeError(f"perceiver graph differs from eager: {info['perceiver']['mismatches']}")
+    # the segmenter compiled at construction, against the eager forward
+    aot = TrackSegmenterAOT(cfg, device=DEVICE)
+    for i, frame in enumerate(frames):
+        if not all(torch.equal(a, b) for a, b in zip(aot.segment_drivable_area(frame), perc.segmenter._apply(frame))):
+            raise RuntimeError(f"TrackSegmenterAOT differs from the eager forward on frame {i}")
+
+    # (f) eager against captured, in turns on fixed cores
+    info["timed"] = {
+        "racing_step": ge.timed_steps("racing", COMPILED_TIMED, DEVICE),
+        "mapping_step": ge.timed_steps("mapping", COMPILED_TIMED, DEVICE),
+        "perceiver_frame": ge.timed_frames(perc, frames, COMPILED_TIMED),
+    }
+    info["launches"] = dict(launches)
+    info["phase_s"] = time.perf_counter() - t_phase
+    info["card"] = card_line()
+    emit("phase 17 compiled entries", info)
+    return info
+
+
 def kernels_line(
     kernel: dict, main: dict, mapping: dict, sweep: dict, multi: dict, perception: dict, agent: dict,
-    tools: dict, parallel: dict, vmapped: dict, training: dict,
+    tools: dict, parallel: dict, vmapped: dict, training: dict, compiled: dict,
 ) -> dict:
     """One row per kernel variant: launches summed over the paths
-    (phases 4, 6, 8-10 and 12-16; phase 5 and 7 are single-scenario
-    checks), each counted by its own name: the box-block cluster kernel
+    (phases 4, 6, 8-10 and 12-17; phase 5 and 7 are single-scenario
+    checks; a replayed graph counts the kernels captured in it, its loop
+    bodies' once a trip), each counted by its own name: the box-block cluster kernel
     takes every control QP and the racelines up to 942 points, the
     box-block split kernel the 1,953-point raceline (no path masks it);
     the dense cluster kernel phase 15's random QPs; the dense split and
     streaming kernels no path (no caller hands them a dense operator that
     no cluster holds); chain edges phase 10's loop, phase 12 and 13's
     racing agent and 16's loop; the chain scan none since the chain-edges
-    kernel. Numbers from phase 3 (dense: horizon 50 at B = 256, the
+    kernel; the graph loop's condition kernel phases 12, 13 and 17 (once
+    a replay of a step, once a chunk). Numbers from phase 3 (dense:
+    horizon 50 at B = 256, the
     mapping shapes for the split and streaming kernels; box block:
     horizon 50 at B = 256 for the cluster kernel, the 1,953-point
     raceline for the split kernel, with the bound of what those inputs
@@ -2526,8 +2701,10 @@ def kernels_line(
     import acmpc_tpu_torch.ops.admm_chunk as ops
     import acmpc_tpu_torch.ops.track_chain as chain
 
+    import acmpc_tpu_torch.ops.graph_loop as graph_loop
+
     paths = collections.Counter()
-    for path in (main, mapping, sweep, multi, perception, agent, tools, parallel, vmapped, training):
+    for path in (main, mapping, sweep, multi, perception, agent, tools, parallel, vmapped, training, compiled):
         paths.update(path["launches"])
 
     def row(name, key, line, prefix=""):
@@ -2592,6 +2769,22 @@ def kernels_line(
                 "bound_by": edges["bound_by"],
                 "library_ms": None,
             },
+            {
+                # the device-side chunk loop (a WHILE node's condition):
+                # ms a trip of a loop whose body is one add, captured,
+                # and the host loop's; the bound is its bytes a trip
+                "name": graph_loop.SET_CONDITION,
+                "route": "cuda",
+                "source": f"acmpc_tpu_torch/csrc/{graph_loop.SOURCE}",
+                "replaces": "acmpc_tpu/qp/admm.py:469",
+                "launches": paths.get(graph_loop.SET_CONDITION, 0),
+                "max_abs_err": compiled["loop"]["max_abs_err"],
+                "ms": compiled["loop"]["ms_per_trip"],
+                "plain_ms": compiled["loop"]["plain_ms_per_trip"],
+                "bound_ms": 1e3 * LOOP_TRIP_BYTES / HBM_BYTES_PER_S,
+                "bound_by": "bytes",
+                "library_ms": None,
+            },
         ]
     }
 
@@ -2622,8 +2815,10 @@ def main() -> int:
     parallel = phase_parallel()
     vmapped = phase_vmapped()
     training = phase_training()
+    compiled = phase_compiled()
     print(json.dumps(kernels_line(
-        kernel, main_info, mapping, sweep, multi, perception, agent, tools, parallel, vmapped, training
+        kernel, main_info, mapping, sweep, multi, perception, agent, tools, parallel, vmapped, training,
+        compiled,
     )))
     print(card_line())
     print(json.dumps({

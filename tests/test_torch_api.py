@@ -25,7 +25,6 @@ X_TOL = dict(rtol=2e-2, atol=2e-2)
 
 # key: a module, "module::name", "module::Class.member" or
 # "module::function(argument)"; value: why the port has no counterpart
-_NO_JIT = "PyTorch runs eagerly: there is nothing to compile, and the step itself is the entry"
 _FLAX_DTYPE = (
     "a Flax module's compute dtype is a field; an nn.Module's is its parameters' "
     "(Module.to), which TrackSegmenter sets from perception.precision"
@@ -41,8 +40,6 @@ OMITTED = {
     "ops/__init__.py::admm_iterations_pallas": "goes with ops/pallas_admm.py",
     "utils/compile_cache.py": "XLA's persistent compile cache; ops/cuda_build.py keys the "
     "kernels' build cache by hash, and there is no XLA cache to keep",
-    "mpc/spatial_mpc.py::SpatialMPC.jitted_get_control": _NO_JIT,
-    "perception/tracks.py::TrackLimitExtractor.jitted": _NO_JIT,
     "qp/admm.py::ADMMConfig.use_pallas": _ONE_VALUE,
     "qp/admm.py::ADMMConfig.refine_steps": _ONE_VALUE,
     "qp/admm.py::ADMMConfig.iter_precision": _ONE_VALUE,

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import acmpc_tpu_torch.ops.admm_chunk as ops
+from acmpc_tpu_torch.ops.graph_loop import settle_launches
 from acmpc_tpu_torch.ops.admm_chunk import (
     CLUSTER,
     CLUSTER_ACTIVE,
@@ -938,6 +939,7 @@ def test_controller_solve_on_card_matches_cpu(cuda_device, tmp_path, mode):
     extractor = TrackLimitExtractor(TrackExtractionConfig.from_config(cfg.perception), sim.camera, "cpu")
     controllers = {d: Controller(cfg, device=d) for d in ("cpu", cuda_device)}
     threads = {d: _ControlThread(c) for d, c in controllers.items()}
+    settle_launches()
     ops.admm_chunk.launches.clear()
     for k, i in enumerate((50, 400, 900)):
         p0, p1 = centre[i], centre[i + 1]
@@ -952,7 +954,8 @@ def test_controller_solve_on_card_matches_cpu(cuda_device, tmp_path, mode):
             np.testing.assert_allclose(getattr(got, field), getattr(want, field), rtol=5e-3, atol=5e-3,
                                        err_msg=f"{mode} {k} {field}")
     # the mapping control (horizon 100) as the racing one: a cluster on
-    # the box block
+    # the box block (the captured step's chunks, settled from the card)
+    settle_launches()
     assert ops.admm_chunk.launches.get(CLUSTER_BOX, 0) >= 3
     assert controllers[cuda_device].mpc.horizon == (100 if mode == "mapping" else 50)
 
@@ -984,6 +987,7 @@ def test_agent_drive_on_card_matches_cpu(cuda_device, tmp_path, monkeypatch):
         agent.controller.shutdown()
     sim = _sim(cfg, map_path)
     raw = sim.reset()
+    settle_launches()
     ops.admm_chunk.launches.clear()
     chain_edges.launches.clear()
     try:
@@ -1005,8 +1009,11 @@ def test_agent_drive_on_card_matches_cpu(cuda_device, tmp_path, monkeypatch):
     finally:
         for agent in agents.values():
             agent.teardown()
+    settle_launches()
     assert ops.admm_chunk.launches.get(CLUSTER_BOX, 0) >= 30
-    assert chain_edges.launches.get(TRACK_CHAIN_EDGES, 0) == 30
+    # a frame a launch, and one more for the first frame's capture of the
+    # jitted extractor (its eager warm-up)
+    assert chain_edges.launches.get(TRACK_CHAIN_EDGES, 0) == 30 + 1
     assert sim.distance > 20.0
 
 
@@ -1227,3 +1234,75 @@ def test_batchnorm_gradient_path_on_card_matches_cpu(cuda_device):
         out[str(device)] = [y.detach(), bn.weight.grad, bn.bias.grad, bn.running_mean.grad, bn.running_var.grad, xd.grad]
     for got, want in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+# -- the compiled entries (ops/graph_loop.py) ---------------------------------
+
+
+def _racing_step_inputs(device):
+    from acmpc_tpu_torch.bench import batch_sweep
+    from acmpc_tpu_torch.bench.graph_entries import make_mpc
+
+    mpc = make_mpc("racing", device)
+    args = (
+        torch.as_tensor(batch_sweep.mixed_refs(50, 1)[0], device=device),
+        torch.full((), 28.0, device=device),
+        torch.zeros((), dtype=torch.bool, device=device),
+        torch.zeros((), device=device),
+    )
+    return mpc, args
+
+
+@pytest.mark.cuda
+def test_jitted_get_control_replays_equal_eager_on_card(cuda_device):
+    """From a carried state: the capture's call, then two replays in a
+    row, each bit-equal to the eager step; what a call returned is not
+    overwritten by the next replay."""
+    mpc, args = _racing_step_inputs(cuda_device)
+    state, _ = mpc.get_control(mpc.initial_state(), *args)
+    eager = jitted = state
+    kept = []
+    for _ in range(3):
+        eager, eager_diags = mpc.get_control(eager, *args)
+        jitted, diags = mpc.jitted_get_control(jitted, *args)
+        got = dataclasses.astuple(jitted) + dataclasses.astuple(diags)
+        want = dataclasses.astuple(eager) + dataclasses.astuple(eager_diags)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        kept.append((jitted.qp_x, jitted.qp_x.clone()))
+    for held, copy in kept:
+        assert torch.equal(held, copy)
+    assert len(mpc.jitted_get_control.graphs.graphs) == 1
+
+
+@pytest.mark.cuda
+def test_capture_that_reads_the_card_raises(cuda_device):
+    from acmpc_tpu_torch.ops import graph_loop
+
+    x = torch.ones(4, device=cuda_device)
+    with pytest.raises(RuntimeError, match="capturing"):
+        graph_loop.CapturedGraph(lambda t: [t * t.sum().item()], [x], "a read")
+    # the stream is usable after the failed capture
+    assert torch.equal(x + 1, torch.full((4,), 2.0, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_replay_makes_no_synchronisation(cuda_device):
+    mpc, args = _racing_step_inputs(cuda_device)
+    state, _ = mpc.jitted_get_control(mpc.initial_state(), *args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            state, diags = mpc.jitted_get_control(state, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(state.solved) and int(diags.control_iterations) > 0
+
+
+@pytest.mark.cuda
+def test_device_while_counts_its_trips_on_card(cuda_device):
+    from acmpc_tpu_torch.bench.graph_entries import loop_row
+
+    row = loop_row(trips=100, device=cuda_device)
+    assert row["max_abs_err"] == 0 and row["launches"] == 101
