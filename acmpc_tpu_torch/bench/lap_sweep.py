@@ -26,6 +26,7 @@ from acmpc_tpu_torch.device import resolve_device
 from acmpc_tpu_torch.geometry.path import wrap_to_pi
 from acmpc_tpu_torch.localise.track_map import TrackMap
 from acmpc_tpu_torch.mpc.spatial_mpc import MPCState, SpatialMPC, shift_warm_start
+from acmpc_tpu_torch.utils.monitor import MONITOR
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,13 +243,17 @@ class LapSweep:
         warm start (real-time iteration: the carried iterates advance by
         the stages each window slid), one batched MPC solve through
         ``get_control``, integration. Returns (cars, states, metrics, i0)."""
-        refs, i0 = self._ego_window(cars)
-        states = shift_warm_start(states, self._shift_stages(i0, prev_i0), self.mpc.horizon)
-        localised = torch.full(i0.shape, self._speeds is not None, device=i0.device)
-        states, diags = get_control(
-            states, refs, self._runtime_v_max(v_max, i0), is_localised=localised
-        )
-        cars, metrics = self._integrate(cars, states, i0)
+        device = self._centre.device
+        with MONITOR.span("sweep.step"):
+            with MONITOR.device_span("sweep.window", device):
+                refs, i0 = self._ego_window(cars)
+                k = self._shift_stages(i0, prev_i0)
+                localised = torch.full(i0.shape, self._speeds is not None, device=i0.device)
+                v_max = self._runtime_v_max(v_max, i0)
+            states = shift_warm_start(states, k, self.mpc.horizon)
+            states, diags = get_control(states, refs, v_max, is_localised=localised)
+            with MONITOR.device_span("sweep.integrate", device):
+                cars, metrics = self._integrate(cars, states, i0)
         metrics["control_iterations"] = diags.control_iterations
         metrics["control_status"] = diags.control_status
         return cars, states, metrics, i0

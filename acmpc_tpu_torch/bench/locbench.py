@@ -48,6 +48,7 @@ from acmpc_tpu_torch.localise.benchmarking import BenchmarkLocalisation, Localis
 from acmpc_tpu_torch.localise.benchmarking.benchmark import OBSERVE_RANGE, STEP_RANGE
 from acmpc_tpu_torch.localise.localiser import Localiser
 from acmpc_tpu_torch.localise.particle_filter import NEAREST_POINT_RANGE, PFState, ScriptedDraws, TorchDraws
+from acmpc_tpu_torch.utils.monitor import MONITOR
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 FIXTURE = ROOT / "tests" / "fixtures" / "torch_locbench_jax.json"
@@ -243,7 +244,7 @@ def profile(recording: str = PROFILE_RECORDING, observations: int = PROFILE_OBSE
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
         torch.cuda.synchronize(device)
-    with torch.profiler.profile(activities=activities) as prof:
+    with MONITOR.operator_ranges(), torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
         summary = bench.run(max_steps=n_steps)
         if device.type == "cuda":

@@ -22,9 +22,10 @@ from acmpc_tpu_torch.dynamics.vehicle import VehicleParams
 from acmpc_tpu_torch.localise.benchmarking.recording import LocalisationRecording
 from acmpc_tpu_torch.localise.benchmarking.tracker import LocalisationTracker
 from acmpc_tpu_torch.localise.localiser import Localiser
-from acmpc_tpu_torch.localise.particle_filter import profiled_range
+from acmpc_tpu_torch.utils.monitor import MONITOR
 
-# the torch.profiler range of each replayed call (bench/locbench.py --profile)
+# the monitor's span of each replayed call, a torch.profiler range of the
+# same name under bench/locbench.py --profile
 STEP_RANGE, OBSERVE_RANGE = "localiser.step", "localiser.observe"
 
 
@@ -59,7 +60,7 @@ class BenchmarkLocalisation:
                     break
                 n_steps += 1
                 dt = self._dt(record["time"])
-                with profiled_range(STEP_RANGE):
+                with MONITOR.span(STEP_RANGE):
                     t0 = perf_counter()
                     self.localiser.step(record["control_command"], dt=dt)
                     elapsed = perf_counter() - t0
@@ -68,7 +69,7 @@ class BenchmarkLocalisation:
                     visualiser.update_particles()
             elif "tracklimits" in record:
                 obs = record["tracklimits"]
-                with profiled_range(OBSERVE_RANGE):
+                with MONITOR.span(OBSERVE_RANGE):
                     if on_card:
                         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                         start.record()

@@ -27,7 +27,6 @@ Draws and the arithmetic on them are fp32.
 from __future__ import annotations
 
 import collections
-import contextlib
 import dataclasses
 import math
 
@@ -35,18 +34,12 @@ import numpy as np
 import torch
 
 from acmpc_tpu_torch.localise.track_map import TrackMap, nearest_point
+from acmpc_tpu_torch.utils.monitor import MONITOR
 
-# the range name of update's three nearest-neighbour queries in a
-# torch.profiler trace (bench/locbench.py --profile reads it)
+# the monitor's span of update's three nearest-neighbour queries, a
+# range of the same name in a torch.profiler trace (bench/locbench.py
+# --profile reads it)
 NEAREST_POINT_RANGE = "nearest_point"
-
-
-def profiled_range(name: str):
-    """A ``torch.profiler`` range named ``name`` while a profiler runs, else
-    nothing (a range costs ~9 us of host time even with no profiler)."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -442,7 +435,7 @@ class ParticleFilter:
             )
         states = state.states
         locs = states[:, :2]
-        with profiled_range(NEAREST_POINT_RANGE):
+        with MONITOR.span(NEAREST_POINT_RANGE):
             centre_off, centre_idx = nearest_point(locs, self.map.centre)
             _, left_idx = nearest_point(locs, self.map.left)
             _, right_idx = nearest_point(locs, self.map.right)

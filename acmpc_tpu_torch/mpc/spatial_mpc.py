@@ -35,6 +35,7 @@ from acmpc_tpu_torch.qp.speed_profile import (
     solve_speed_profile,
     solve_speed_profile_sharded,
 )
+from acmpc_tpu_torch.utils.monitor import MONITOR
 
 # iteration cap of the reference controller
 MAX_SOLVER_ITERATIONS = 4000
@@ -108,32 +109,33 @@ def shift_warm_start(state: MPCState, k, horizon: int) -> MPCState:
     the vacated tail repeating the terminal stage. ``k`` is an int or one
     per scenario. The published commands and prediction are untouched.
     """
-    n = horizon - 1
-    k = scalar(k, state.qp_x.device)
+    with MONITOR.device_span("mpc.shift", state.qp_x.device):
+        n = horizon - 1
+        k = scalar(k, state.qp_x.device)
 
-    def roll_stages(flat, width, n_stages):
-        rows = flat.reshape(*flat.shape[:-1], n_stages, width)
-        idx = torch.arange(n_stages, device=flat.device)
-        shift = k[..., None] if k.dim() > 0 else k
-        src = torch.broadcast_to((idx + shift) % n_stages, rows.shape[:-1])
-        rolled = torch.gather(rows, -2, src[..., None].expand(rows.shape))
-        keep = torch.broadcast_to(idx < (n_stages - shift), rows.shape[:-1])
-        rolled = torch.where(keep[..., None], rolled, rows[..., -1:, :])
-        return rolled.reshape(flat.shape)
+        def roll_stages(flat, width, n_stages):
+            rows = flat.reshape(*flat.shape[:-1], n_stages, width)
+            idx = torch.arange(n_stages, device=flat.device)
+            shift = k[..., None] if k.dim() > 0 else k
+            src = torch.broadcast_to((idx + shift) % n_stages, rows.shape[:-1])
+            rolled = torch.gather(rows, -2, src[..., None].expand(rows.shape))
+            keep = torch.broadcast_to(idx < (n_stages - shift), rows.shape[:-1])
+            rolled = torch.where(keep[..., None], rolled, rows[..., -1:, :])
+            return rolled.reshape(flat.shape)
 
-    nx_all = NX * (n + 1)
-    x_states = roll_stages(state.qp_x[..., :nx_all], NX, n + 1)
-    x_inputs = roll_stages(state.qp_x[..., nx_all:], NU, n)
-    y_eq = roll_stages(state.qp_y[..., :nx_all], NX, n + 1)
-    y_box_states = roll_stages(state.qp_y[..., nx_all : 2 * nx_all], NX, n + 1)
-    y_box_inputs = roll_stages(state.qp_y[..., 2 * nx_all :], NU, n)
-    vels = roll_stages(state.velocities, 1, n)
-    return dataclasses.replace(
-        state,
-        qp_x=torch.cat([x_states, x_inputs], dim=-1),
-        qp_y=torch.cat([y_eq, y_box_states, y_box_inputs], dim=-1),
-        velocities=vels,
-    )
+        nx_all = NX * (n + 1)
+        x_states = roll_stages(state.qp_x[..., :nx_all], NX, n + 1)
+        x_inputs = roll_stages(state.qp_x[..., nx_all:], NU, n)
+        y_eq = roll_stages(state.qp_y[..., :nx_all], NX, n + 1)
+        y_box_states = roll_stages(state.qp_y[..., nx_all : 2 * nx_all], NX, n + 1)
+        y_box_inputs = roll_stages(state.qp_y[..., 2 * nx_all :], NU, n)
+        vels = roll_stages(state.velocities, 1, n)
+        return dataclasses.replace(
+            state,
+            qp_x=torch.cat([x_states, x_inputs], dim=-1),
+            qp_y=torch.cat([y_eq, y_box_states, y_box_inputs], dim=-1),
+            velocities=vels,
+        )
 
 
 class SpatialMPC:
@@ -307,11 +309,13 @@ class SpatialMPC:
         carry (the previous commands on an infeasible solve) and
         diagnostics.
         """
-        path, speed_sol, qp = self._prepare(
-            state, reference_path, v_max_runtime, is_localised, offset
-        )
+        with MONITOR.device_span("mpc.prepare", self.device):
+            path, speed_sol, qp = self._prepare(
+                state, reference_path, v_max_runtime, is_localised, offset
+            )
         control_sol = _solve_box_qp(*qp, self.admm, x0=state.qp_x, y0=state.qp_y, box=True)
-        return self._extract(state, path, speed_sol, control_sol)
+        with MONITOR.device_span("mpc.extract", self.device):
+            return self._extract(state, path, speed_sol, control_sol)
 
     @functools.cached_property
     def jitted_get_control(self):
@@ -411,13 +415,15 @@ class SpatialMPC:
         if is_localised is None:
             is_localised = torch.zeros((B,), dtype=torch.bool, device=self.device)
         offsets = torch.zeros((B,), dtype=self.dtype, device=self.device)
-        path, speed_sol, qp = self._prepare(
-            states, refs, self._tensor(v_max), is_localised, offsets
-        )
+        with MONITOR.device_span("mpc.prepare", self.device):
+            path, speed_sol, qp = self._prepare(
+                states, refs, self._tensor(v_max), is_localised, offsets
+            )
         control_sol = _solve_box_qp_batched(
             *qp, self.admm, x0=states.qp_x, y0=states.qp_y, box=True
         )
-        return self._extract(states, path, speed_sol, control_sol)
+        with MONITOR.device_span("mpc.extract", self.device):
+            return self._extract(states, path, speed_sol, control_sol)
 
     def _extract(
         self,

@@ -43,6 +43,7 @@ import weakref
 import torch
 
 from acmpc_tpu_torch.ops.cuda_build import build_library
+from acmpc_tpu_torch.utils.monitor import MONITOR
 
 SOURCE = "graph_loop.cu"
 SET_CONDITION = "graph_loop_set_condition"
@@ -239,6 +240,13 @@ class CapturedGraph:
     nothing runs eagerly in its place. ``__call__`` copies the inputs in,
     replays, and returns clones of the outputs: a later replay never
     overwrites what a caller holds. One thread replays a graph at a time.
+
+    With ``utils/monitor.MONITOR`` on, the three steps of a call are its
+    spans ``graph.inputs``, ``graph.replay`` and ``graph.outputs``, and it
+    counts ``graph.capture:<name>`` and ``graph.replay:<name>``. The
+    device spans that ``fn`` opens while it is captured are event-record
+    nodes of the graph (with the monitor off there are none), whose
+    samples the monitor resolves at the next replay.
     """
 
     def __init__(self, fn, inputs, name: str = "graph"):
@@ -265,7 +273,8 @@ class CapturedGraph:
             self.graph.capture_begin(pool=capture.pool, capture_error_mode=CAPTURE_MODE)
             _local.capture = capture
             try:
-                outputs = fn(*self.static_inputs)
+                with MONITOR.capturing() as timers:
+                    outputs = fn(*self.static_inputs)
             except BaseException as err:
                 _local.capture = None
                 try:
@@ -288,16 +297,25 @@ class CapturedGraph:
         self._per_replay = capture.tallies[0]
         self._loops = [(tally, 0) for _, tally in capture.loops]
         self._trips = capture.trips
+        # the monitor's timers of the device spans in the capture
+        self._timers = timers
         _graphs.add(self)
+        MONITOR.count(f"graph.capture:{name}")
 
     def __call__(self, inputs) -> list:
         with self._lock:
-            for buffer, value in zip(self.static_inputs, inputs):
-                buffer.copy_(value)
-            self.graph.replay()
+            with MONITOR.span("graph.inputs"):
+                for buffer, value in zip(self.static_inputs, inputs):
+                    buffer.copy_(value)
+            with MONITOR.span("graph.replay"):
+                if self._timers:
+                    MONITOR.replaying(self._timers)
+                self.graph.replay()
+            MONITOR.count(f"graph.replay:{self.name}")
             for counter, name in self._per_replay:
                 counter[name] += 1
-            return [t.clone() for t in self.static_outputs]
+            with MONITOR.span("graph.outputs"):
+                return [t.clone() for t in self.static_outputs]
 
     def settle(self) -> None:
         """Add the loop bodies' launches since the last settle (reads the
@@ -325,7 +343,9 @@ class GraphCache:
     """``fn`` (flat device tensors in, a flat sequence of tensors out) as
     a :class:`CapturedGraph` per input signature: shapes, dtypes and
     device, as ``jax.jit`` keys its cache. CPU inputs run ``fn`` eagerly,
-    as the caller asked."""
+    as the caller asked. The monitor's state is part of the key: a graph
+    captured with it on holds its device spans' timers, one captured
+    with it off holds none."""
 
     def __init__(self, fn, name: str):
         self.fn = fn
@@ -336,7 +356,7 @@ class GraphCache:
     def __call__(self, *inputs) -> list:
         if inputs[0].device.type != "cuda":
             return list(self.fn(*inputs))
-        key = tuple((tuple(t.shape), t.dtype, t.device) for t in inputs)
+        key = (MONITOR.enabled, *((tuple(t.shape), t.dtype, t.device) for t in inputs))
         graph = self.graphs.get(key)
         if graph is None:
             graph = self.graphs[key] = CapturedGraph(self.fn, inputs, self.name)

@@ -28,6 +28,7 @@ from acmpc_tpu_torch.perception.tracks import (
     TrackExtractionConfig,
     TrackLimitExtractor,
 )
+from acmpc_tpu_torch.utils.monitor import MONITOR
 
 
 class Perceiver:
@@ -62,8 +63,10 @@ class Perceiver:
     def _run_pipeline(self, image: torch.Tensor):
         """image: (H, W, 3) uint8 on the device -> (drivable, semantics,
         tracks), all on the device."""
-        drivable, semantics = self.segmenter._apply(image)
-        tracks = self.extractor.extract(drivable)
+        with MONITOR.device_span("perceiver.segment", image.device):
+            drivable, semantics = self.segmenter._apply(image)
+        with MONITOR.device_span("perceiver.extract", image.device):
+            tracks = self.extractor.extract(drivable)
         return drivable, semantics, tracks
 
     # -- host preprocessing ---------------------------------------------
@@ -71,30 +74,35 @@ class Perceiver:
         """JPEG round trip so inference sees the training distribution."""
         import cv2
 
-        ok, buf = cv2.imencode(".jpg", image)
+        with MONITOR.span("perceiver.jpeg_encode"):
+            ok, buf = cv2.imencode(".jpg", image)
         if not ok:
             return image
-        return cv2.imdecode(buf, cv2.IMREAD_COLOR)
+        with MONITOR.span("perceiver.jpeg_decode"):
+            return cv2.imdecode(buf, cv2.IMREAD_COLOR)
 
     def _ensure_size(self, image: np.ndarray) -> np.ndarray:
         if image.shape[:2] != (self.cfg.image_height, self.cfg.image_width):
             import cv2
 
-            image = cv2.resize(
-                image,
-                dsize=(self.cfg.image_width, self.cfg.image_height),
-                interpolation=cv2.INTER_LINEAR,
-            )
+            with MONITOR.span("perceiver.resize"):
+                image = cv2.resize(
+                    image,
+                    dsize=(self.cfg.image_width, self.cfg.image_height),
+                    interpolation=cv2.INTER_LINEAR,
+                )
         return image
 
     # -- public API ------------------------------------------------------
     def perceive(self, image: np.ndarray) -> dict:
         """Full pipeline on one frame. Returns a dict with the drivable
         mask, semantics and BEV track polylines (device tensors)."""
-        image = self._ensure_size(self._encode_decode_image(image))
-        drivable, semantics, tracks = self._pipeline(
-            torch.as_tensor(image, device=self.device)
-        )
+        with MONITOR.span("perceiver.perceive"):
+            image = self._ensure_size(self._encode_decode_image(image))
+            with MONITOR.span("perceiver.upload"):
+                frame = torch.as_tensor(image, device=self.device)
+            with MONITOR.span("perceiver.pipeline"):
+                drivable, semantics, tracks = self._pipeline(frame)
         return {
             "drivable": drivable,
             "semantics": semantics,

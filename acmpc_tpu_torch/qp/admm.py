@@ -45,6 +45,7 @@ import torch
 
 from acmpc_tpu_torch.ops.admm_chunk import admm_chunk
 from acmpc_tpu_torch.ops.graph_loop import device_while
+from acmpc_tpu_torch.utils.monitor import MONITOR
 
 _INF = 1e30  # bounds with |value| >= _INF/1e4 are treated as loose
 _MIN_SCALING = 1e-4
@@ -313,21 +314,33 @@ def _solve_one(P, q, A, l, u, cfg, x0, y0, box=False) -> tuple[QPSolution, torch
     dtype = q.dtype
     n = q.shape[-1]
     m = l.shape[-1]
-
-    l = torch.clamp(l, -_INF, _INF)
-    u = torch.clamp(u, -_INF, _INF)
-
-    Ps, qs, As, c, d, e = _ruiz_equilibrate(P, q, A, cfg.scaling_iters)
-    ls = e * l
-    us = e * u
-    As = As.contiguous()
     sigma = cfg.sigma
-    A_chunk, A_d, g = _chunk_operator(As, box)
-    box_kw = {} if g is None else {"g": g[None], "sigma": sigma}
 
-    x = torch.zeros(n, dtype=dtype, device=q.device) if x0 is None else x0 / d
-    y = torch.zeros(m, dtype=dtype, device=q.device) if y0 is None else c * y0 / e
-    z = torch.clamp(As @ x, ls, us)
+    def operator(rho):
+        rho_vec = _rho_vector(rho, ls, us)
+        return rho_vec, _build_operator(_factor(Ps, As, rho_vec, sigma), As, qs, sigma, A_d)
+
+    def full(value, dtype):
+        # filled on the device: a copy from host memory cannot be captured
+        return torch.full((), value, dtype=dtype, device=q.device)
+
+    # scaling, rho, K and its factorisation, the operator, the first iterates
+    with MONITOR.device_span("qp.factor", q.device):
+        l = torch.clamp(l, -_INF, _INF)
+        u = torch.clamp(u, -_INF, _INF)
+
+        Ps, qs, As, c, d, e = _ruiz_equilibrate(P, q, A, cfg.scaling_iters)
+        ls = e * l
+        us = e * u
+        As = As.contiguous()
+        A_chunk, A_d, g = _chunk_operator(As, box)
+        box_kw = {} if g is None else {"g": g[None], "sigma": sigma}
+
+        x = torch.zeros(n, dtype=dtype, device=q.device) if x0 is None else x0 / d
+        y = torch.zeros(m, dtype=dtype, device=q.device) if y0 is None else c * y0 / e
+        z = torch.clamp(As @ x, ls, us)
+        rho = full(cfg.rho, dtype)
+        rho_vec, op = operator(rho)
 
     def residuals(x, y, z):
         """Unscaled residuals, convergence flags and the adaptive-rho
@@ -370,20 +383,10 @@ def _solve_one(P, q, A, l, u, cfg, x0, y0, box=False) -> tuple[QPSolution, torch
         )
         return xo[0], zo[0], yo[0]
 
-    def operator(rho):
-        rho_vec = _rho_vector(rho, ls, us)
-        return rho_vec, _build_operator(_factor(Ps, As, rho_vec, sigma), As, qs, sigma, A_d)
-
-    def full(value, dtype):
-        # filled on the device: a copy from host memory cannot be captured
-        return torch.full((), value, dtype=dtype, device=q.device)
-
-    rho = full(cfg.rho, dtype)
-    rho_vec, op = operator(rho)
-
     if cfg.fixed_iterations is not None:
-        x, z, y = chunk(x, z, y, rho_vec, op, cfg.fixed_iterations)
-        r_p, r_d, converged, near, _ = residuals(x, y, z)
+        with MONITOR.device_span("qp.iterate", q.device):
+            x, z, y = chunk(x, z, y, rho_vec, op, cfg.fixed_iterations)
+            r_p, r_d, converged, near, _ = residuals(x, y, z)
         return QPSolution(
             x=x * d,
             y=y * e / c,
@@ -432,22 +435,25 @@ def _solve_one(P, q, A, l, u, cfg, x0, y0, box=False) -> tuple[QPSolution, torch
             x, z, y, full(0, torch.int32), full(inf, dtype), full(inf, dtype),
             full(STATUS_MAX_ITER, torch.int32), full(False, torch.bool),
         )
-        x, z, y, iterations, r_p, r_d, status, _ = device_while(cond, body, carry)
+        with MONITOR.device_span("qp.iterate", q.device):
+            x, z, y, iterations, r_p, r_d, status, _ = device_while(cond, body, carry)
     else:
         # adaptive rho refactors between chunks: the host reads the flags
         it = 0
         done = False
         r_p = r_d = full(float("inf"), dtype)
         status = full(STATUS_MAX_ITER, torch.int32)
-        while not done and it < cfg.max_iter:
-            x, z, y, r_p, r_d, status, done_t, ratio = check(x, z, y, rho_vec, op)
-            it += cfg.check_every
-            done = bool(done_t)  # host read, once per chunk
-            if not done:
-                tol = cfg.adaptive_rho_tol
-                if bool((ratio > tol) | (ratio < 1.0 / tol)):
-                    rho = torch.clamp(rho * ratio, 1e-6, 1e6)
-                    rho_vec, op = operator(rho)
+        with MONITOR.device_span("qp.iterate", q.device):
+            while not done and it < cfg.max_iter:
+                x, z, y, r_p, r_d, status, done_t, ratio = check(x, z, y, rho_vec, op)
+                it += cfg.check_every
+                with MONITOR.span("qp.read_done"):
+                    done = bool(done_t)  # host read, once per chunk
+                if not done:
+                    tol = cfg.adaptive_rho_tol
+                    if bool((ratio > tol) | (ratio < 1.0 / tol)):
+                        rho = torch.clamp(rho * ratio, 1e-6, 1e6)
+                        rho_vec, op = operator(rho)
         iterations = full(it, torch.int32)
 
     return QPSolution(

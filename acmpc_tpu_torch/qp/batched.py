@@ -35,6 +35,7 @@ from acmpc_tpu_torch.qp.admm import (
     _rho_vector,
     _ruiz_equilibrate,
 )
+from acmpc_tpu_torch.utils.monitor import MONITOR
 
 
 def solve_box_qp_batched(
@@ -62,25 +63,27 @@ def _solve_box_qp_batched(P, q, A, l, u, cfg=ADMMConfig(), x0=None, y0=None, *, 
     B, n = q.shape
     m = l.shape[-1]
 
-    l = torch.clamp(l, -_INF, _INF)
-    u = torch.clamp(u, -_INF, _INF)
+    # scaling, rho, K and its factorisation, the operator, the first iterates
+    with MONITOR.device_span("qp.factor", device):
+        l = torch.clamp(l, -_INF, _INF)
+        u = torch.clamp(u, -_INF, _INF)
 
-    Ps, qs, As, c, d, e = _ruiz_equilibrate(P, q, A, cfg.scaling_iters)
-    ls = e * l
-    us = e * u
-    As = As.contiguous()
-    A_chunk, A_d, g = _chunk_operator(As, box)
-    box_kw = {} if g is None else {"g": g, "sigma": cfg.sigma}
-    rho_vec = _rho_vector(torch.tensor(cfg.rho, dtype=dtype, device=device), ls, us)
-    W, c0 = _build_operator(_factor(Ps, As, rho_vec, cfg.sigma), As, qs, cfg.sigma, A_d)
+        Ps, qs, As, c, d, e = _ruiz_equilibrate(P, q, A, cfg.scaling_iters)
+        ls = e * l
+        us = e * u
+        As = As.contiguous()
+        A_chunk, A_d, g = _chunk_operator(As, box)
+        box_kw = {} if g is None else {"g": g, "sigma": cfg.sigma}
+        rho_vec = _rho_vector(torch.tensor(cfg.rho, dtype=dtype, device=device), ls, us)
+        W, c0 = _build_operator(_factor(Ps, As, rho_vec, cfg.sigma), As, qs, cfg.sigma, A_d)
 
-    x = torch.zeros(B, n, dtype=dtype, device=device) if x0 is None else x0 / d
-    y = (
-        torch.zeros(B, m, dtype=dtype, device=device)
-        if y0 is None
-        else c[:, None] * y0 / e
-    )
-    z = torch.clamp(_mv(As, x), ls, us)
+        x = torch.zeros(B, n, dtype=dtype, device=device) if x0 is None else x0 / d
+        y = (
+            torch.zeros(B, m, dtype=dtype, device=device)
+            if y0 is None
+            else c[:, None] * y0 / e
+        )
+        z = torch.clamp(_mv(As, x), ls, us)
 
     def chunk(x, z, y, n_iters, active=None):
         return admm_chunk(
@@ -98,8 +101,9 @@ def _solve_box_qp_batched(P, q, A, l, u, cfg=ADMMConfig(), x0=None, y0=None, *, 
         return torch.full((B,), value, dtype=dtype, device=device)
 
     if cfg.fixed_iterations is not None:
-        x, z, y = chunk(x, z, y, cfg.fixed_iterations)
-        r_p, r_d, converged, near = residuals(x, y, z)
+        with MONITOR.device_span("qp.iterate", device):
+            x, z, y = chunk(x, z, y, cfg.fixed_iterations)
+            r_p, r_d, converged, near = residuals(x, y, z)
         status = torch.where(
             converged,
             STATUS_SOLVED,
@@ -121,35 +125,39 @@ def _solve_box_qp_batched(P, q, A, l, u, cfg=ADMMConfig(), x0=None, y0=None, *, 
     r_d = full(float("inf"), dtype)
     status = full(STATUS_MAX_ITER, torch.int32)
     its = full(cfg.max_iter, torch.int32)
-    while it < cfg.max_iter and not bool(done.all()):  # host read per chunk
-        # converged scenarios skip the chunk's iterations in the kernel
-        active = ~done if cfg.tile_skip else None
-        xn, zn, yn = chunk(x, z, y, cfg.check_every, active=active)
-        # frozen scenarios keep their converged/certified iterates
-        keep = done[:, None]
-        xn = torch.where(keep, x, xn)
-        zn = torch.where(keep, z, zn)
-        yn = torch.where(keep, y, yn)
-        it += cfg.check_every
-        r_pn, r_dn, converged, near = residuals(xn, yn, zn)
-        prim_inf = prim_inf_certificate(yn - y) & ~converged & ~done
-        newly_done = (converged | prim_inf) & ~done
-        # still-running scenarios carry the near flag, so a max_iter exit
-        # reports STATUS_SOLVED_INACCURATE within inaccurate_factor * tol
-        status = torch.where(
-            newly_done,
-            torch.where(converged, STATUS_SOLVED, STATUS_PRIMAL_INFEASIBLE),
-            torch.where(
-                ~done & near,
-                STATUS_SOLVED_INACCURATE,
-                torch.where(~done, STATUS_MAX_ITER, status),
-            ),
-        ).to(torch.int32)
-        its = torch.where(newly_done, it, its).to(torch.int32)
-        done = done | newly_done
-        r_p = torch.where(done & ~newly_done, r_p, r_pn)
-        r_d = torch.where(done & ~newly_done, r_d, r_dn)
-        x, z, y = xn, zn, yn
+    with MONITOR.device_span("qp.iterate", device):
+        while it < cfg.max_iter:
+            with MONITOR.span("qp.read_done"):
+                if bool(done.all()):  # host read per chunk
+                    break
+            # converged scenarios skip the chunk's iterations in the kernel
+            active = ~done if cfg.tile_skip else None
+            xn, zn, yn = chunk(x, z, y, cfg.check_every, active=active)
+            # frozen scenarios keep their converged/certified iterates
+            keep = done[:, None]
+            xn = torch.where(keep, x, xn)
+            zn = torch.where(keep, z, zn)
+            yn = torch.where(keep, y, yn)
+            it += cfg.check_every
+            r_pn, r_dn, converged, near = residuals(xn, yn, zn)
+            prim_inf = prim_inf_certificate(yn - y) & ~converged & ~done
+            newly_done = (converged | prim_inf) & ~done
+            # still-running scenarios carry the near flag, so a max_iter exit
+            # reports STATUS_SOLVED_INACCURATE within inaccurate_factor * tol
+            status = torch.where(
+                newly_done,
+                torch.where(converged, STATUS_SOLVED, STATUS_PRIMAL_INFEASIBLE),
+                torch.where(
+                    ~done & near,
+                    STATUS_SOLVED_INACCURATE,
+                    torch.where(~done, STATUS_MAX_ITER, status),
+                ),
+            ).to(torch.int32)
+            its = torch.where(newly_done, it, its).to(torch.int32)
+            done = done | newly_done
+            r_p = torch.where(done & ~newly_done, r_p, r_pn)
+            r_d = torch.where(done & ~newly_done, r_d, r_dn)
+            x, z, y = xn, zn, yn
 
     return QPSolution(
         x=x * d,

@@ -28,6 +28,7 @@ from acmpc_tpu_torch.geometry.path import ReferencePath
 from acmpc_tpu_torch.mpc.spatial_mpc import SpatialMPC, build_mpc
 from acmpc_tpu_torch.runtime.commands import TemporalCommandSelector
 from acmpc_tpu_torch.runtime.mailbox import Mailbox
+from acmpc_tpu_torch.utils.monitor import MONITOR
 
 
 @dataclasses.dataclass
@@ -219,33 +220,38 @@ class _ControlThread(threading.Thread):
     @torch.no_grad()
     def _solve(self, centreline: np.ndarray, stamp: float):
         t0 = time.perf_counter()
-        mpc = self._c.mpc
-        horizon = mpc.horizon
-        # downsample to the horizon with tapered widths
-        ds = max(1, int(len(centreline) / horizon))
-        pts = centreline[::ds][:horizon]
-        if len(pts) < horizon:  # pad by repeating the last point
-            pad = np.repeat(pts[-1:], horizon - len(pts), axis=0)
-            pts = np.concatenate([pts, pad])
-        widths = np.linspace(10.0, 6.0, horizon)
-        ref = np.stack([pts[:, 0], pts[:, 1], widths]).T
+        with MONITOR.span("control.solve"):
+            mpc = self._c.mpc
+            horizon = mpc.horizon
+            with MONITOR.span("control.refit"):
+                # downsample to the horizon with tapered widths
+                ds = max(1, int(len(centreline) / horizon))
+                pts = centreline[::ds][:horizon]
+                if len(pts) < horizon:  # pad by repeating the last point
+                    pad = np.repeat(pts[-1:], horizon - len(pts), axis=0)
+                    pts = np.concatenate([pts, pad])
+                widths = np.linspace(10.0, 6.0, horizon)
+                ref = np.stack([pts[:, 0], pts[:, 1], widths]).T
 
-        state = self._states[id(mpc)]
-        new_state, diags = mpc.jitted_get_control(
-            state,
-            np.asarray(ref, np.float32),
-            float(self._c.reference_speed),
-            bool(self._c.is_localised),
-        )
-        self._states[id(mpc)] = new_state
-        if bool(new_state.solved):
-            self._c._publish(
-                CommandSet(
-                    timestamp=stamp,
-                    controls=new_state.projected_control.cpu().numpy().T,
-                    cum_time=new_state.cum_time.cpu().numpy(),
-                    prediction=new_state.prediction.cpu().numpy(),
+            state = self._states[id(mpc)]
+            with MONITOR.span("control.step"):
+                new_state, diags = mpc.jitted_get_control(
+                    state,
+                    np.asarray(ref, np.float32),
+                    float(self._c.reference_speed),
+                    bool(self._c.is_localised),
                 )
-            )
+            self._states[id(mpc)] = new_state
+            # the host waits here for the step's answer
+            with MONITOR.span("control.publish"):
+                if bool(new_state.solved):
+                    self._c._publish(
+                        CommandSet(
+                            timestamp=stamp,
+                            controls=new_state.projected_control.cpu().numpy().T,
+                            cum_time=new_state.cum_time.cpu().numpy(),
+                            prediction=new_state.prediction.cpu().numpy(),
+                        )
+                    )
         self._c.n_solves += 1
         self._c.solve_s += time.perf_counter() - t0

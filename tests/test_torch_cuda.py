@@ -1306,3 +1306,125 @@ def test_device_while_counts_its_trips_on_card(cuda_device):
 
     row = loop_row(trips=100, device=cuda_device)
     assert row["max_abs_err"] == 0 and row["launches"] == 101
+
+
+# -- the monitor's device spans in captured graphs (utils/monitor.py) ---------
+
+
+@pytest.fixture
+def monitor_on():
+    """The process's monitor on for one test, off and empty after it."""
+    from acmpc_tpu_torch.utils.monitor import MONITOR
+
+    MONITOR.clear()
+    MONITOR.enable()
+    try:
+        yield MONITOR
+    finally:
+        MONITOR.disable()
+        MONITOR.clear()
+
+
+def _timed_replays(monitor, call, n):
+    """``call()`` n times, each synchronised; returns each call's wall (ms)
+    and what the monitor took after them."""
+    import time
+
+    monitor.clear()
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with monitor.span("test.request"):
+            call()
+            torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return walls, monitor.take()
+
+
+def _check_samples(taken, names, walls):
+    """One positive sample of each name a replay, each inside its
+    replay's wall, all resolved, and no capture among the replays."""
+    requests = sorted({s[4] for s in taken["spans"] if s[0] == "test.request"})
+    assert len(requests) == len(walls)
+    assert taken["unresolved"] == 0
+    assert not any(k.startswith("graph.capture:") for k in taken["counters"])
+    for name in names:
+        got = {r: ms for n, r, ms in taken["device"] if n == name}
+        assert len([1 for n, _, _ in taken["device"] if n == name]) == len(walls), name
+        assert sorted(got) == requests, name
+        for request, wall in zip(requests, walls):
+            assert 0 < got[request] <= wall, (name, got[request], wall)
+
+
+@pytest.mark.cuda
+def test_monitor_times_the_captured_step_once_a_replay(cuda_device, monitor_on):
+    """Closed loop through the captured horizon-50 step with the monitor
+    on: the device spans in the graph resolve one sample each a replay,
+    none left unresolved, and the answers equal the graph captured with
+    the monitor off, bit for bit."""
+    mpc, args = _racing_step_inputs(cuda_device)
+    monitor_on.disable()
+    off, _ = mpc.jitted_get_control(mpc.initial_state(), *args)
+    monitor_on.enable()
+    on, _ = mpc.jitted_get_control(mpc.initial_state(), *args)
+    assert len(mpc.jitted_get_control.graphs.graphs) == 2
+    for a, b in zip(dataclasses.astuple(on), dataclasses.astuple(off)):
+        assert torch.equal(a, b)
+    state = [on]
+
+    def step():
+        state[0], _ = mpc.jitted_get_control(state[0], *args)
+
+    walls, taken = _timed_replays(monitor_on, step, 5)
+    _check_samples(taken, ("mpc.prepare", "qp.factor", "qp.iterate", "mpc.extract"), walls)
+    assert taken["counters"] == {"graph.replay:SpatialMPC.get_control": 5}
+    names = {s[0] for s in taken["spans"]}
+    assert {"graph.inputs", "graph.replay", "graph.outputs"} <= names
+    # the same carried states through the graph captured with the monitor off
+    monitor_on.disable()
+    replay = on
+    for _ in range(5):
+        replay, _ = mpc.jitted_get_control(replay, *args)
+    for a, b in zip(dataclasses.astuple(replay), dataclasses.astuple(state[0])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_monitor_times_the_perceivers_pipeline_once_a_replay(cuda_device, monitor_on):
+    from acmpc_tpu_torch.bench import perception_loop as loop
+    from acmpc_tpu_torch.perception.perceiver import Perceiver
+
+    cfg = loop.perception_config(320, 192, "fp32")
+    centre, left, right, _ = loop.circuit()
+    frame = torch.as_tensor(loop.make_sim(cfg, centre, left, right).reset()["image"], device=cuda_device)
+    perc = Perceiver(cfg, device=cuda_device)
+    on = perc._pipeline(frame)
+    walls, taken = _timed_replays(monitor_on, lambda: perc._pipeline(frame), 4)
+    _check_samples(taken, ("perceiver.segment", "perceiver.extract"), walls)
+    monitor_on.disable()
+    off = perc._pipeline(frame)
+    assert len(perc._pipeline.graphs.graphs) == 2
+    assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
+    for key in on[2]:
+        assert torch.equal(on[2][key], off[2][key]), key
+
+
+@pytest.mark.cuda
+def test_graph_captured_with_the_monitor_off_holds_no_event(cuda_device):
+    from acmpc_tpu_torch.ops import graph_loop
+    from acmpc_tpu_torch.utils.monitor import MONITOR
+
+    assert not MONITOR.enabled
+    pool = list(MONITOR._free)
+    x = torch.ones(64, device=cuda_device)
+
+    def fn(t):
+        with MONITOR.device_span("test.square", t.device):
+            return [t * t]
+
+    graph = graph_loop.CapturedGraph(fn, [x], "square")
+    assert graph._timers == []
+    assert MONITOR._free == pool and MONITOR._eager == []
+    assert torch.equal(graph([x + 1])[0], torch.full((64,), 4.0, device=cuda_device))
+    assert MONITOR.take() == {"spans": [], "device": [], "counters": {}, "unresolved": 0}
