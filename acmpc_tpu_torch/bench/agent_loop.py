@@ -72,6 +72,7 @@ from acmpc_tpu_torch.geometry.tracks import offset_boundaries
 from acmpc_tpu_torch.localise.track_map import TrackMap, load_track_map
 from acmpc_tpu_torch.ops import admm_chunk as chunk_ops
 from acmpc_tpu_torch.ops import graph_loop
+from acmpc_tpu_torch.ops import jpeg_round_trip as jpeg_ops
 from acmpc_tpu_torch.ops import track_chain as chain_ops
 from acmpc_tpu_torch.perception.camera import CameraInfo
 from acmpc_tpu_torch.runtime.agent import Agent
@@ -143,7 +144,10 @@ def mapping_config(map_path: str):
 
 def _launches() -> dict:
     graph_loop.settle_launches()  # the replays' loop-body launches
-    counters = (chunk_ops.admm_chunk.launches, chain_ops.chain_edges.launches, graph_loop.device_while.launches)
+    counters = (
+        chunk_ops.admm_chunk.launches, chain_ops.chain_edges.launches, graph_loop.device_while.launches,
+        jpeg_ops.jpeg_round_trip.launches,
+    )
     return dict(sum((collections.Counter(c) for c in counters), collections.Counter()))
 
 
@@ -153,6 +157,15 @@ def _clear_launches() -> None:
     chain_ops.chain_edges.launches.clear()
     chain_ops.chain_scan.launches.clear()
     graph_loop.device_while.launches.clear()
+    jpeg_ops.jpeg_round_trip.launches.clear()
+
+
+def _jpeg_fails(launches: dict, camera: bool) -> list:
+    """A camera frame is perceived on the card path: one launch of each
+    JPEG round-trip kernel a chain-edges launch (an oracle mask: none)."""
+    want = launches.get(chain_ops.TRACK_CHAIN_EDGES, 0) if camera else 0
+    got = [launches.get(name, 0) for name in (jpeg_ops.BLOCKS_KERNEL, jpeg_ops.COLOUR_KERNEL)]
+    return [] if got == [want, want] else [f"JPEG round-trip launches {got}, expected {want} of each"]
 
 
 def _other_chunk_kernels(launches: dict) -> dict:
@@ -383,13 +396,15 @@ def racing_run(frames: int = 200, device="cuda", profile: bool = False, dashboar
         drive = _Drive(agent, sim, centre)
         d0, before = sim.distance, _threads(agent)
         _sync(device)
-        _clear_launches()
+        with agent._update_lock:  # no frame is half counted
+            _clear_launches()
         t0 = time.perf_counter()
         for _ in range(frames):
             obs = drive.frame(obs)
         _sync(device)
         seconds = time.perf_counter() - t0
-        out["launches"] = _launches()
+        with agent._update_lock:
+            out["launches"] = _launches()
         out.update(drive.summary())
         out.update(_thread_rates(agent, before, frames, seconds))
         commands = out["command_sets"]
@@ -426,6 +441,7 @@ def racing_run(frames: int = 200, device="cuda", profile: bool = False, dashboar
             fails.append(f"cluster launches {cluster} < command sets {commands} or none published")
         if launches.get(chain_ops.TRACK_CHAIN_EDGES, 0) < 1:
             fails.append("the chain-edges kernel never ran")
+        fails += _jpeg_fails(launches, camera=True)
         others = _other_chunk_kernels(launches)
         if others:
             fails.append(f"chunk kernels other than the box-block cluster ran in a racing run: {others}")
@@ -517,6 +533,7 @@ def mapping_run(device="cuda", profile: bool = False) -> dict:
                 fails.append(f"the box-block cluster kernel never ran {phase}")
             if _other_chunk_kernels(launches):
                 fails.append(f"other chunk kernels ran {phase}: {_other_chunk_kernels(launches)}")
+            fails += _jpeg_fails(launches, camera=False)
         if out["mapping"]["launches"].get(chain_ops.TRACK_CHAIN_EDGES, 0) < 1:
             fails.append("the chain-edges kernel never ran")
     out["fails"] = fails

@@ -2,7 +2,8 @@
 
 ``SpatialMPC.jitted_get_control`` (one CUDA graph a step, the QP's chunk
 loop a WHILE node in it) against ``get_control``, and the perceiver's
-captured pipeline (``Perceiver._pipeline``) against ``_run_pipeline``,
+captured pipelines (``Perceiver._pipeline`` and the card path's
+``_raw_pipeline``, the JPEG round trip first) against ``_run_pipeline``,
 on the same inputs in one process:
 
 * ``closed_loop``: B = 1 closed-loop steps on the monza map
@@ -20,7 +21,9 @@ on the same inputs in one process:
   synchronisations a step (``torch.cuda.set_sync_debug_mode("warn")``),
   launches and busy time a step (``torch.profiler``), chunks a step, the
   capture's time and the graph's memory pool.
-* ``timed_frames``: the same for the perceiver's frame at 1280x736 bf16.
+* ``timed_frames``: the same for the perceiver's raw frame at 1280x736
+  bf16 (the JPEG round-trip kernels and ``_run_pipeline`` eager against
+  ``_raw_pipeline``).
 * ``loop_row``: a ``device_while`` whose body is one add, per trip,
   captured against eager (the loop kernel's row of ``chip_smoke.py``).
 
@@ -54,6 +57,7 @@ from acmpc_tpu_torch.localise.track_map import load_track_map
 from acmpc_tpu_torch.mpc.spatial_mpc import MPCDiagnostics, MPCState, SpatialMPC, shift_warm_start
 from acmpc_tpu_torch.ops import graph_loop
 from acmpc_tpu_torch.ops.admm_chunk import CLUSTER_BOX, admm_chunk
+from acmpc_tpu_torch.ops.jpeg_round_trip import jpeg_round_trip, jpeg_round_trip_reference
 from acmpc_tpu_torch.ops.track_chain import chain_edges
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
@@ -313,10 +317,11 @@ def timed_steps(mode: str, n: int = TIMED, device="cuda") -> dict:
 
 
 def timed_frames(perc, frames: list, n: int = TIMED) -> dict:
-    """The perceiver's frame, eager ``_run_pipeline`` against the
-    captured ``_pipeline``, on device frames taken in turn."""
+    """The perceiver's raw frame as the card path runs it: eager (the
+    JPEG round-trip kernels, then ``_run_pipeline``) against the captured
+    ``_raw_pipeline``, on device frames taken in turn."""
     index = {"eager": 0, "captured": 0}
-    entries = {"eager": perc._run_pipeline, "captured": perc._pipeline}
+    entries = {"eager": lambda f: perc._run_pipeline(jpeg_round_trip(f)), "captured": perc._raw_pipeline}
 
     def frame(name):
         i = index[name] = (index[name] + 1) % len(frames)
@@ -344,14 +349,20 @@ def timed_frames(perc, frames: list, n: int = TIMED) -> dict:
 
 
 def compare_frames(perc, frames: list) -> dict:
-    """The captured pipeline against eager on each frame: the mask, the
-    semantics and every polyline and edge tensor bit-equal."""
+    """The captured pipelines against eager on each raw frame: the mask,
+    the semantics and every polyline and edge tensor bit-equal. The host
+    path's ``_pipeline`` against ``_run_pipeline``; the card path's
+    ``_raw_pipeline`` (the JPEG round-trip kernels, then the pipeline)
+    against the plain round trip, then ``_run_pipeline``."""
     mismatches = []
     for i, image in enumerate(frames):
-        d0, s0, t0 = perc._run_pipeline(image)
-        d1, s1, t1 = perc._pipeline(image)
-        pairs = {"drivable": (d0, d1), "semantics": (s0, s1), **{k: (t0[k], t1[k]) for k in t0}}
-        mismatches += [f"frame {i}: {k}" for k, (a, b) in pairs.items() if not torch.equal(a, b)]
+        pairs = {
+            "": (perc._run_pipeline(image), perc._pipeline(image)),
+            "raw ": (perc._run_pipeline(jpeg_round_trip_reference(image)), perc._raw_pipeline(image)),
+        }
+        for path, ((d0, s0, t0), (d1, s1, t1)) in pairs.items():
+            tensors = {"drivable": (d0, d1), "semantics": (s0, s1), **{k: (t0[k], t1[k]) for k in t0}}
+            mismatches += [f"frame {i}: {path}{k}" for k, (a, b) in tensors.items() if not torch.equal(a, b)]
     return {"frames": len(frames), "bit_equal": not mismatches, "mismatches": mismatches[:10]}
 
 

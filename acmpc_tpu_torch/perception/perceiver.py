@@ -7,11 +7,19 @@ between the stages and nothing is read back, so a caller can queue the
 control step behind it. ``_pipeline`` is it compiled, as JAX's
 ``jax.jit(_run_pipeline)``: on the card one CUDA graph captured at the
 first frame of each shape (``ops/graph_loop.GraphCache``), the FPN and
-the chain-edges kernel in it. ``perceive`` calls it, and adds the host
-steps kept from the
-original stack: the JPEG round trip that matches the training
-distribution and the resize guard, both through OpenCV, imported when
-first used (``ImportError`` where it is not installed).
+the chain-edges kernel in it.
+
+``perceive`` adds the steps kept from the original stack: the JPEG round
+trip that matches the training distribution (OpenCV's default encode and
+decode) and the resize guard. Where the perceiver is on the card and the
+frame is a uint8 (image_height, image_width, 3) array (the guard would
+do nothing), the raw frame is uploaded and one graph replay
+runs the round trip (``ops/jpeg_round_trip``, the same bytes as OpenCV's)
+and then ``_run_pipeline``. Every other frame takes the host path:
+OpenCV's round trip at the frame's own size, the resize, the upload and
+``_pipeline``. OpenCV is imported when first used (``ImportError`` where
+it is not installed). The monitor's counters ``perceiver.jpeg:device``
+and ``perceiver.jpeg:host`` count the frames each way.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import torch
 
 from acmpc_tpu_torch.config.schema import PerceptionConfig
 from acmpc_tpu_torch.ops.graph_loop import GraphCache
+from acmpc_tpu_torch.ops.jpeg_round_trip import jpeg_round_trip
 from acmpc_tpu_torch.perception.camera import CameraInfo
 from acmpc_tpu_torch.perception.segmentation import TrackSegmenter
 from acmpc_tpu_torch.perception.tracks import (
@@ -50,14 +59,24 @@ class Perceiver:
             drivable, semantics, tracks = self._run_pipeline(image)
             return [drivable, semantics, *(tracks[k] for k in TRACK_KEYS)]
 
-        graphs = GraphCache(flat, "Perceiver._run_pipeline")
+        def raw(image):
+            with MONITOR.device_span("perceiver.jpeg", image.device):
+                image = jpeg_round_trip(image)
+            return flat(image)
 
-        def pipeline(image: torch.Tensor):
-            out = graphs(image)
-            return out[0], out[1], dict(zip(TRACK_KEYS, out[2:]))
+        def compiled(fn, name: str):
+            graphs = GraphCache(fn, name)
 
-        pipeline.graphs = graphs
-        self._pipeline = pipeline
+            def pipeline(image: torch.Tensor):
+                out = graphs(image)
+                return out[0], out[1], dict(zip(TRACK_KEYS, out[2:]))
+
+            pipeline.graphs = graphs
+            return pipeline
+
+        self._pipeline = compiled(flat, "Perceiver._run_pipeline")
+        # the raw frame's JPEG round trip on the card, then the pipeline
+        self._raw_pipeline = compiled(raw, "Perceiver._run_raw_frame")
 
     @torch.no_grad()
     def _run_pipeline(self, image: torch.Tensor):
@@ -93,16 +112,32 @@ class Perceiver:
                 )
         return image
 
+    def _round_trip_on_card(self, image) -> bool:
+        """Whether the frame's round trip runs on the card: a CUDA
+        perceiver, and a frame the resize guard would leave alone."""
+        return (
+            self.device.type == "cuda"
+            and isinstance(image, np.ndarray)
+            and image.dtype == np.uint8
+            and image.shape == (self.cfg.image_height, self.cfg.image_width, 3)
+        )
+
     # -- public API ------------------------------------------------------
     def perceive(self, image: np.ndarray) -> dict:
         """Full pipeline on one frame. Returns a dict with the drivable
         mask, semantics and BEV track polylines (device tensors)."""
         with MONITOR.span("perceiver.perceive"):
-            image = self._ensure_size(self._encode_decode_image(image))
+            on_card = self._round_trip_on_card(image)
+            MONITOR.count("perceiver.jpeg:device" if on_card else "perceiver.jpeg:host")
+            if on_card:
+                image = np.ascontiguousarray(image)  # a strided view uploads as its frame
+            else:
+                image = self._ensure_size(self._encode_decode_image(image))
             with MONITOR.span("perceiver.upload"):
                 frame = torch.as_tensor(image, device=self.device)
             with MONITOR.span("perceiver.pipeline"):
-                drivable, semantics, tracks = self._pipeline(frame)
+                pipeline = self._raw_pipeline if on_card else self._pipeline
+                drivable, semantics, tracks = pipeline(frame)
         return {
             "drivable": drivable,
             "semantics": semantics,

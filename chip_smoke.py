@@ -270,6 +270,10 @@ CHAIN_POSES = 16
 PERCEPTION_FRAMES = 30
 LOOP_FRAMES = 40
 PROFILE_FRAMES = 10
+# the JPEG round trip (phase 10): round trips a timed graph holds, its
+# replays, and the simulator frames through ``Perceiver.perceive`` on
+# each path
+JPEG_PER_GRAPH, JPEG_REPS, PERCEIVE_FRAMES = 20, 50, 20
 # one dependent shared-memory or shuffle round trip of the chain's walk,
 # in SM cycles: the floor of a band step
 CHAIN_STEP_CYCLES = 30
@@ -1127,18 +1131,19 @@ def _counted(fn):
     it; returns (its result, the counts just after)."""
     from acmpc_tpu_torch.ops import graph_loop
     from acmpc_tpu_torch.ops.admm_chunk import admm_chunk
+    from acmpc_tpu_torch.ops.jpeg_round_trip import jpeg_round_trip
     from acmpc_tpu_torch.ops.track_chain import chain_edges, chain_scan
 
+    counters = (
+        admm_chunk.launches, chain_scan.launches, chain_edges.launches, graph_loop.device_while.launches,
+        jpeg_round_trip.launches,
+    )
     graph_loop.settle_launches()  # the replays' loop bodies, before the clear
-    admm_chunk.launches.clear()
-    chain_scan.launches.clear()
-    chain_edges.launches.clear()
-    graph_loop.device_while.launches.clear()
+    for counter in counters:
+        counter.clear()
     out = fn()
     graph_loop.settle_launches()
-    counts = {
-        **admm_chunk.launches, **chain_scan.launches, **chain_edges.launches, **graph_loop.device_while.launches
-    }
+    counts = {name: n for counter in counters for name, n in counter.items()}
     return out, {name: n for name, n in counts.items() if n}
 
 
@@ -1406,9 +1411,116 @@ def sm_clocks_mhz() -> dict:
     return {"sm_clock_mhz": float(now), "max_sm_clock_mhz": float(most)}
 
 
+def _jpeg_round_trip(perc, frames: dict) -> dict:
+    """The JPEG round-trip kernels at the camera's size on each host frame
+    of ``frames``: byte-equal to the plain version on the card and to the
+    perceiver's host round trip (OpenCV); each kernel's us a launch
+    (``torch.profiler``), the pair's us a round trip in a graph of
+    ``JPEG_PER_GRAPH`` (launched as the perception graph launches them),
+    the plain version's and OpenCV's ms. The bound: the frame read once
+    (the blocks kernel) and written once (the colour kernel)."""
+    import torch
+
+    from acmpc_tpu_torch.bench.step_breakdown import device_time
+    from acmpc_tpu_torch.ops import jpeg_round_trip as jrt
+
+    rows = {}
+    for name, frame in frames.items():
+        image = torch.as_tensor(frame, device=DEVICE)
+        got = jrt.jpeg_round_trip(image)
+        if not torch.equal(got, jrt.jpeg_round_trip_reference(image)):
+            raise RuntimeError(f"JPEG round trip {name}: the kernels differ from the plain version")
+        t0 = time.perf_counter()
+        opencv = [perc._encode_decode_image(frame) for _ in range(JPEG_PER_GRAPH)][-1]
+        opencv_ms = 1e3 * (time.perf_counter() - t0) / JPEG_PER_GRAPH
+        if not np.array_equal(got.cpu().numpy(), opencv):
+            raise RuntimeError(f"JPEG round trip {name}: the kernels differ from OpenCV's round trip")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = [jrt.jpeg_round_trip(image) for _ in range(JPEG_PER_GRAPH)]
+        pair_ms = time_cuda_ms(graph.replay, JPEG_REPS) / JPEG_PER_GRAPH
+        del outs, graph
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(JPEG_REPS):
+                jrt.jpeg_round_trip(image)
+            torch.cuda.synchronize()
+        _, per_kernel = device_time(prof)
+        kernel_ms = {
+            kernel: 1e-3 * sum(us for key, (us, _) in per_kernel.items() if kernel in key) / JPEG_REPS
+            for kernel in (jrt.BLOCKS_KERNEL, jrt.COLOUR_KERNEL)
+        }
+        rows[name] = {
+            "bit_equal_plain": True,
+            "bit_equal_opencv": True,
+            "pair_ms": pair_ms,
+            **{f"{kernel}_ms": ms for kernel, ms in kernel_ms.items()},
+            "plain_ms": time_cuda_ms(lambda: jrt.jpeg_round_trip_reference(image), reps=5),
+            "opencv_ms": opencv_ms,
+        }
+    h, w = next(iter(frames.values())).shape[:2]
+    frame_ms = 1e3 * 3 * h * w / HBM_BYTES_PER_S
+    return {"resolution": f"{w}x{h}", "bound_ms": 2 * frame_ms, "kernel_bound_ms": frame_ms, **rows}
+
+
+def _perceive_paths(perc, frames: list) -> dict:
+    """``Perceiver.perceive`` on the card path against the host path
+    (OpenCV's round trip, the upload, ``_pipeline``) on the same host
+    frames: outputs bit-equal, a frame's launches (after a warm frame on
+    each path) exact, and each path's ms a frame to a synchronise."""
+    import torch
+
+    from acmpc_tpu_torch.ops import jpeg_round_trip as jrt
+    from acmpc_tpu_torch.ops import track_chain as chain
+
+    def host(frame):
+        image = torch.as_tensor(perc._encode_decode_image(frame), device=DEVICE)
+        drivable, _, tracks = perc._pipeline(image)
+        return drivable, tracks["centre"]
+
+    def card(frame):
+        out = perc.perceive(frame)
+        return out["drivable"], out["centreline"]
+
+    walls = {"card": [], "host": []}
+    for name, fn in (("card", card), ("host", host)):
+        fn(frames[0])
+        torch.cuda.synchronize()
+
+        def run(fn=fn, name=name):
+            outs = []
+            for frame in frames:
+                t0 = time.perf_counter()
+                outs.append(fn(frame))
+                torch.cuda.synchronize()
+                walls[name].append(1e3 * (time.perf_counter() - t0))
+            return outs
+
+        walls[name + "_outs"], walls[name + "_launches"] = _counted(run)
+    n = len(frames)
+    want = {
+        "card": {jrt.BLOCKS_KERNEL: n, jrt.COLOUR_KERNEL: n, chain.TRACK_CHAIN_EDGES: n},
+        "host": {chain.TRACK_CHAIN_EDGES: n},
+    }
+    for name, counts in want.items():
+        if walls[name + "_launches"] != counts:
+            raise RuntimeError(f"perceive, {name} path: launches {walls[name + '_launches']}, expected {counts}")
+    for i, (a, b) in enumerate(zip(walls["card_outs"], walls["host_outs"])):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise RuntimeError(f"perceive: frame {i} differs between the card path and the host path")
+    return {
+        "frames": n,
+        "bit_equal": True,
+        "launches_card": walls["card_launches"],
+        "launches_host": walls["host_launches"],
+        "card_ms_p50": float(np.median(walls["card"])),
+        "host_ms_p50": float(np.median(walls["host"])),
+    }
+
+
 def phase_perception() -> dict:
     """Perception on the card: checkpoint, IoU gate, chain-scan kernel
-    against its plain version at 1280x736, the per-frame time and the
+    against its plain version at 1280x736, the per-frame time, the JPEG
+    round-trip kernels and ``perceive`` on each path, and the
     camera-to-command loop."""
     import torch
 
@@ -1578,6 +1690,13 @@ def phase_perception() -> dict:
     perc = Perceiver(cfg, variables, DEVICE)
     info["per_frame"] = loop.perception_fps(perc, frames=PERCEPTION_FRAMES)
 
+    # 4b. the JPEG round-trip kernels on a simulator frame and a random
+    # one; then the simulator's frames through perceive on each path
+    host_frames, _ = loop.sim_frames(sim, centre, PERCEIVE_FRAMES)
+    random_frame = np.random.default_rng(19).integers(0, 256, (H, W, 3), dtype=np.uint8)
+    info["jpeg_round_trip"] = _jpeg_round_trip(perc, {"sim": host_frames[0], "random": random_frame})
+    info["perceive"] = _perceive_paths(perc, host_frames)
+
     # 5. the camera-to-command loop
     mpc = closed_loop_mpc(DEVICE)
     run, launches = _counted(lambda: loop.perception_in_loop(perc, mpc, sim, centre, lap_m, LOOP_FRAMES))
@@ -1591,10 +1710,18 @@ def phase_perception() -> dict:
     warm = 1 + run["captured_warm_frame"]
     if launches.get(chain.TRACK_CHAIN_EDGES, 0) != run["frames"] + warm or chain.TRACK_CHAIN_SCAN in launches:
         raise RuntimeError(f"perception loop: chain launches {launches} for {run['frames']} + {warm} frames")
+    # the loop feeds its frames to ``_pipeline`` as they are, as bench.py's
+    # loop does: no JPEG round trip (4b counts perceive's)
+    if any(name.startswith("jpeg_round_trip") for name in launches):
+        raise RuntimeError(f"perception loop: JPEG round-trip launches {launches}")
     if launches.get(CLUSTER_BOX, 0) == 0:
         raise RuntimeError(f"perception loop never launched {CLUSTER_BOX}: {launches}")
     info["loop"] = run
-    info["launches"] = launches
+    # the loop's launches and those of 4b's perceive, both paths
+    info["launches"] = dict(
+        collections.Counter(launches) + collections.Counter(info["perceive"]["launches_card"])
+        + collections.Counter(info["perceive"]["launches_host"])
+    )
     # the loop's launches and busy time per frame
     profile = loop.profile_loop(perc, mpc, sim, frames=PROFILE_FRAMES)
     info["loop_profile"] = {k: v for k, v in profile.items() if not isinstance(v, list) or k == "top_kernels_ms_per_frame"}
@@ -2571,8 +2698,10 @@ def phase_compiled() -> dict:
     ``get_control``, bit-equal, with a step that runs to ``max_iter`` and
     a step that fails, the replays' launches exact; the golden battery
     through ``jitted_get_control``; a replay with host synchronisations an
-    error; a capture that reads the card raising; the perceiver's graph
-    against eager at 1280x736 bf16; the eager-against-captured timings."""
+    error; a capture that reads the card raising; the perceiver's graphs
+    against eager at 1280x736 bf16 (``_pipeline``, and the card path's
+    ``_raw_pipeline`` against the plain JPEG round trip then
+    ``_run_pipeline``); the eager-against-captured timings."""
     import torch
 
     from acmpc_tpu_torch.bench import graph_entries as ge
@@ -2657,7 +2786,7 @@ def phase_compiled() -> dict:
     frames = [torch.as_tensor(f, device=DEVICE) for f in frames]
     info["perceiver"] = ge.compare_frames(perc, frames)
     if not info["perceiver"]["bit_equal"]:
-        raise RuntimeError(f"perceiver graph differs from eager: {info['perceiver']['mismatches']}")
+        raise RuntimeError(f"perceiver graphs differ from eager: {info['perceiver']['mismatches']}")
     # the segmenter compiled at construction, against the eager forward
     aot = TrackSegmenterAOT(cfg, device=DEVICE)
     for i, frame in enumerate(frames):
@@ -2692,13 +2821,19 @@ def kernels_line(
     no cluster holds); chain edges phase 10's loop, phase 12 and 13's
     racing agent and 16's loop; the chain scan none since the chain-edges
     kernel; the graph loop's condition kernel phases 12, 13 and 17 (once
-    a replay of a step, once a chunk). Numbers from phase 3 (dense:
+    a replay of a step, once a chunk); the JPEG round trip's two kernels
+    phase 10's ``perceive`` and 12 and 13's racing agent, a frame each
+    (a max_abs_err of 0: byte-equal to the plain version and OpenCV, or
+    the phase raised; the bound the frame read once by the blocks kernel
+    and written once by the colour kernel; ms under the profiler on a
+    simulator frame). Numbers from phase 3 (dense:
     horizon 50 at B = 256, the
     mapping shapes for the split and streaming kernels; box block:
     horizon 50 at B = 256 for the cluster kernel, the 1,953-point
     raceline for the split kernel, with the bound of what those inputs
     need) and for both chain kernels from phase 10 at 1280x736, band 4."""
     import acmpc_tpu_torch.ops.admm_chunk as ops
+    import acmpc_tpu_torch.ops.jpeg_round_trip as jpeg
     import acmpc_tpu_torch.ops.track_chain as chain
 
     import acmpc_tpu_torch.ops.graph_loop as graph_loop
@@ -2729,6 +2864,7 @@ def kernels_line(
     h100, h100a = f"n{n100}_B{MAPPING_BATCH}", f"n{n100}_B{MAPPING_BATCH}_active"
     scan = perception["chain_scan"]["band4"]
     edges = perception["chain_edges"]["band4"]
+    sim_jpeg = perception["jpeg_round_trip"]["sim"]
     return {
         "kernels": [
             row(ops.CLUSTER, h50, 99),
@@ -2769,6 +2905,22 @@ def kernels_line(
                 "bound_by": edges["bound_by"],
                 "library_ms": None,
             },
+            *(
+                {
+                    "name": name,
+                    "route": "cuda",
+                    "source": f"acmpc_tpu_torch/csrc/{jpeg.SOURCE}",
+                    "replaces": "acmpc_tpu/perception/perceiver.py:48",
+                    "launches": paths.get(name, 0),
+                    "max_abs_err": 0,
+                    "ms": sim_jpeg[f"{name}_ms"],
+                    "plain_ms": sim_jpeg["plain_ms"],
+                    "bound_ms": perception["jpeg_round_trip"]["kernel_bound_ms"],
+                    "bound_by": "bytes",
+                    "library_ms": None,
+                }
+                for name in (jpeg.BLOCKS_KERNEL, jpeg.COLOUR_KERNEL)
+            ),
             {
                 # the device-side chunk loop (a WHILE node's condition):
                 # ms a trip of a loop whose body is one add, captured,

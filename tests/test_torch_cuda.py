@@ -1428,3 +1428,164 @@ def test_graph_captured_with_the_monitor_off_holds_no_event(cuda_device):
     assert MONITOR._free == pool and MONITOR._eager == []
     assert torch.equal(graph([x + 1])[0], torch.full((64,), 4.0, device=cuda_device))
     assert MONITOR.take() == {"spans": [], "device": [], "counters": {}, "unresolved": 0}
+
+
+# -- the camera frame's JPEG round trip (ops/jpeg_round_trip.py) ---------------
+
+# each edge rule (tests/test_torch_jpeg_round_trip.py): whole MCUs; H even
+# and not a multiple of 16; H and W odd; chroma at most 2 samples wide;
+# W * 3 not a multiple of 16 (byte loads); the configured 1280x736
+JPEG_SIZES = [(16, 16), (32, 64), (48, 80), (10, 24), (22, 40), (40, 96), (8, 8), (9, 17), (33, 31),
+              (15, 131), (59, 33), (8, 3), (13, 4), (11, 1), (1, 30), (24, 150), (17, 30),
+              (80, 200), (736, 1280)]
+
+
+def _jpeg_frame(kind, h, w, seed):
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    frame = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    if kind == "blurred":
+        frame = cv2.GaussianBlur(frame, (7, 7), 2.0)
+    return np.ascontiguousarray(frame)
+
+
+def _opencv_round_trip(frame):
+    import cv2
+
+    ok, buf = cv2.imencode(".jpg", frame)
+    assert ok
+    return cv2.imdecode(buf, cv2.IMREAD_COLOR)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "blurred"])
+@pytest.mark.parametrize("h,w", JPEG_SIZES)
+def test_jpeg_kernels_equal_reference_and_opencv_on_card(cuda_device, h, w, kind):
+    from acmpc_tpu_torch.ops import jpeg_round_trip as jrt
+
+    frame = _jpeg_frame(kind, h, w, 1000 * h + w)
+    jrt.jpeg_round_trip.launches.clear()
+    got = jrt.jpeg_round_trip(torch.as_tensor(frame, device=cuda_device))
+    torch.cuda.synchronize()
+    assert dict(jrt.jpeg_round_trip.launches) == {jrt.BLOCKS_KERNEL: 1, jrt.COLOUR_KERNEL: 1}
+    assert got.device.type == "cuda" and got.dtype == torch.uint8 and tuple(got.shape) == (h, w, 3)
+    want = jrt.jpeg_round_trip_reference(torch.from_numpy(frame))
+    assert torch.equal(got.cpu(), want)
+    np.testing.assert_array_equal(got.cpu().numpy(), _opencv_round_trip(frame))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 3, 16])
+def test_jpeg_kernels_on_unaligned_frames_on_card(cuda_device, offset):
+    # a frame that starts `offset` bytes into its allocation: byte loads
+    # and stores where 16- and 4-byte accesses would be misaligned
+    from acmpc_tpu_torch.ops import jpeg_round_trip as jrt
+
+    frame = _jpeg_frame("blurred", 64, 128, offset)
+    flat = torch.empty(frame.size + offset, dtype=torch.uint8, device=cuda_device)
+    image = flat[offset:].view(frame.shape).copy_(torch.as_tensor(frame))
+    got = jrt.jpeg_round_trip(image)
+    np.testing.assert_array_equal(got.cpu().numpy(), _opencv_round_trip(frame))
+
+
+def _camera_cell_frame(seed):
+    """One 1280x736 frame of the camera cell's renderer, on the card."""
+    import json
+
+    from perfbench import frames
+    from perfbench.reference.sweep import load_centre
+
+    config = json.loads((ROOT / "perfbench/configs/monza_racing_h50.json").read_text())
+    traffic = json.loads((ROOT / "perfbench/traffic/camera_b1.json").read_text())
+    centre = load_centre(str(ROOT / traffic["map"]))
+    rng = np.random.default_rng(seed)
+    rows = frames.poses(centre, rng, 1, 1, traffic["frame_step_m"], traffic["offset_amp_m"],
+                        traffic["yaw_jitter_deg"])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return frames.render(centre, config["agent"]["perception"], rows, traffic["half_width_m"], gen,
+                         torch.device("cuda"))[0]
+
+
+@pytest.mark.cuda
+def test_jpeg_kernels_on_camera_frames_on_card(cuda_device):
+    from acmpc_tpu_torch.ops import jpeg_round_trip as jrt
+
+    for seed in (2**31 + 11, 7):
+        frame = _camera_cell_frame(seed)
+        got = jrt.jpeg_round_trip(torch.as_tensor(frame, device=cuda_device)).cpu()
+        assert torch.equal(got, jrt.jpeg_round_trip_reference(torch.from_numpy(frame)))
+        np.testing.assert_array_equal(got.numpy(), _opencv_round_trip(frame))
+
+
+def _sim_frame(cfg):
+    from acmpc_tpu_torch.bench import perception_loop as loop
+
+    centre, left, right, _ = loop.circuit()
+    return loop.make_sim(cfg, centre, left, right).reset()["image"]
+
+
+@pytest.mark.cuda
+def test_perceive_on_card_equals_the_host_path(cuda_device):
+    # the configured size takes the card's round trip; the host path is
+    # OpenCV's round trip, the upload and the captured pipeline: the
+    # pipeline sees the same bytes, so masks and tracks are equal. A
+    # column-major view of the frame takes the card path too.
+    from acmpc_tpu_torch.bench import perception_loop as loop
+    from acmpc_tpu_torch.ops import jpeg_round_trip as jrt
+    from acmpc_tpu_torch.perception.perceiver import Perceiver
+    from acmpc_tpu_torch.perception.tracks import TRACK_KEYS
+
+    cfg = loop.perception_config(320, 192, "fp32")
+    frame = _sim_frame(cfg)
+    perc = Perceiver(cfg, device=cuda_device)
+    jrt.jpeg_round_trip.launches.clear()
+    card = [perc.perceive(frame) for _ in range(2)][-1]
+    settle_launches()
+    # the capture's warm-up, its first replay, then one replay
+    assert dict(jrt.jpeg_round_trip.launches) == {jrt.BLOCKS_KERNEL: 3, jrt.COLOUR_KERNEL: 3}
+    view = perc.perceive(np.asfortranarray(frame))
+    assert dict(jrt.jpeg_round_trip.launches) == {jrt.BLOCKS_KERNEL: 4, jrt.COLOUR_KERNEL: 4}
+    drivable, semantics, tracks = perc._pipeline(torch.as_tensor(perc._encode_decode_image(frame), device=cuda_device))
+    host = {"drivable": drivable, "semantics": semantics, "centreline": tracks["centre"],
+            **{k: tracks[k] for k in TRACK_KEYS if k != "centre"}}
+    assert len(perc._raw_pipeline.graphs.graphs) == 1 and len(perc._pipeline.graphs.graphs) == 1
+    assert set(card) == set(host)
+    for key in card:
+        assert card[key].device.type == "cuda", key
+        assert torch.equal(card[key], host[key]), key
+        assert torch.equal(card[key], view[key]), key
+
+
+@pytest.mark.cuda
+def test_perceive_spans_and_counters_on_card(cuda_device, monitor_on):
+    from acmpc_tpu_torch.bench import perception_loop as loop
+    from acmpc_tpu_torch.perception.perceiver import Perceiver
+
+    cfg = loop.perception_config(320, 192, "fp32")
+    frame = _sim_frame(cfg)
+    perc = Perceiver(cfg, device=cuda_device)
+    monitor_on.clear()
+    perc.perceive(frame)  # captures the graph, its device spans in it
+    taken = monitor_on.take()
+    parents = {}
+    for name, _, _, parent, _ in taken["spans"]:
+        parents.setdefault(name, set()).add(parent)
+    assert parents["perceiver.jpeg"] == {"perceiver.pipeline"}
+    assert parents["perceiver.segment"] == {"perceiver.pipeline"}
+    assert not {"perceiver.jpeg_encode", "perceiver.jpeg_decode", "perceiver.resize"} & set(parents)
+    assert taken["counters"]["perceiver.jpeg:device"] == 1
+    assert "perceiver.jpeg:host" not in taken["counters"]
+    # replays: one device sample of the round trip each, inside its request
+    walls, taken = _timed_replays(monitor_on, lambda: perc.perceive(frame), 3)
+    _check_samples(taken, ("perceiver.jpeg", "perceiver.segment", "perceiver.extract"), walls)
+    assert taken["counters"]["perceiver.jpeg:device"] == 3
+    # an off-size frame: OpenCV's round trip and the resize on the host
+    monitor_on.clear()
+    perc.perceive(np.ascontiguousarray(frame[:190]))
+    taken = monitor_on.take()
+    names = {s[0] for s in taken["spans"]}
+    assert {"perceiver.jpeg_encode", "perceiver.jpeg_decode", "perceiver.resize"} <= names
+    assert "perceiver.jpeg" not in names
+    assert taken["counters"]["perceiver.jpeg:host"] == 1
+    assert "perceiver.jpeg:device" not in taken["counters"]

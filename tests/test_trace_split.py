@@ -113,3 +113,23 @@ def test_layer_numbers_leave_out_what_was_not_recorded():
     spans += [_span("sweep.integrate", 0.0, 0.001)]
     got = trace_split.layer_numbers(trace_split.per_request(_taken(spans, lap + [("mpc.prepare", 1, 2.0)]), 1), 256)
     assert got == pytest.approx({"lap_device_ms.b256": 1.75, "prepare_device_ms.b256": 2.0, "graph_captures": 0})
+
+
+def test_layer_numbers_of_the_round_trip_on_the_card():
+    # the card's path: no host JPEG spans, the round trip a device sample a
+    # replay (its host span only at the capture)
+    spans = [
+        _span("perceiver.upload", 0.0, 0.0005), _span("perceiver.upload", 1.0, 1.0003, request=2),
+        _span("perceiver.jpeg", 0.0, 0.0),
+    ]
+    device = [("perceiver.jpeg", 1, 0.02), ("perceiver.jpeg", 2, 0.03), ("perceiver.segment", 1, 2.0),
+              ("perceiver.segment", 2, 2.0)]
+    program = trace_split.per_request(_taken(spans, device, {"perceiver.jpeg:device": 2}), 2)
+    got = trace_split.layer_numbers(program, 1)
+    assert got == pytest.approx({"jpeg_device_ms": 0.025, "upload_ms": 0.4, "segment_device_ms": 2.0,
+                                 "graph_captures": 0})
+    assert "jpeg_ms" not in got
+    assert trace_split.bounding_sums(got, {"perception": [0.005]}, [0.01]) == {}
+    # samples with no host span at all (a window after the capture) still count
+    program = trace_split.per_request(_taken([], device[:2]), 2)
+    assert trace_split.layer_numbers(program, 1) == pytest.approx({"jpeg_device_ms": 0.025, "graph_captures": 0})

@@ -98,6 +98,7 @@ def layer_numbers(program: dict, batch: int) -> dict:
     b = f".b{batch}"
     out = {
         "jpeg_ms": total("host_ms", "perceiver.jpeg_encode", "perceiver.jpeg_decode"),
+        "jpeg_device_ms": total("device_ms", "perceiver.jpeg"),
         "upload_ms": total("host_ms", "perceiver.upload"),
         "segment_device_ms": total("device_ms", "perceiver.segment"),
         "extract_device_ms": total("device_ms", "perceiver.extract"),
