@@ -230,7 +230,7 @@ def perception_fps(perc: Perceiver, frames: int = 30, seed: int = 0) -> dict:
     _sync(device)
     dt = (time.perf_counter() - t0) / frames
 
-    mask, _ = perc.segmenter._apply(img)
+    mask, _, _ = perc.segmenter._apply(img)
     fpn_ms = _time_ms(lambda: perc.segmenter._apply(img), frames, device)
     extract_ms = _time_ms(lambda: perc.extractor.extract(mask), frames, device)
     return {
@@ -330,7 +330,7 @@ def profile_loop(perc: Perceiver, mpc, sim: SyntheticSimulator, frames: int) -> 
     state = mpc.initial_state()
     for _ in range(frames):
         img = torch.as_tensor(obs["image"], device=device)
-        mask, _ = timed("fpn_ms", lambda: perc.segmenter._apply(img))
+        mask, _, _ = timed("fpn_ms", lambda: perc.segmenter._apply(img))
         tracks = timed("extraction_ms", lambda: perc.extractor.extract(mask))
         ref = reference_from_tracks(tracks["centre"], horizon, n_poly)
         state, _ = timed("mpc_ms", lambda: mpc.get_control(state, ref))

@@ -47,6 +47,9 @@ class PerceptionConfig:
     vertical_fov_deg: float
     camera_position: tuple
     camera_pitch_deg: float
+    # the segmenter (perception/segmentation.ARCHITECTURES); the port's
+    # own key: the JAX package runs the FPN alone
+    architecture: str = "fpn_resnet18"
 
     @classmethod
     def from_config(cls, cfg: dict) -> "PerceptionConfig":
@@ -63,6 +66,7 @@ class PerceptionConfig:
             vertical_fov_deg=cfg["vertical_fov_deg"],
             camera_position=tuple(cfg["camera_position"]),
             camera_pitch_deg=cfg["camera_pitch_deg"],
+            architecture=cfg.get("architecture", "fpn_resnet18"),
         )
 
 

@@ -9,6 +9,14 @@ control step behind it. ``_pipeline`` is it compiled, as JAX's
 first frame of each shape (``ops/graph_loop.GraphCache``), the FPN and
 the chain-edges kernel in it.
 
+The pipelines return ``(drivable, semantics, tracks)`` as a
+:class:`PipelineOutput`, which also holds the segmenter's own logits
+(``logits``; ``TrackSegmenter._apply``). ``_run_pipeline`` always hands
+them out; the captured pipelines only where the perceiver was built
+with ``keep_logits=True``, as a graph output like the others, so that a
+caller can judge what the timed path produced. Without it the graphs
+neither keep nor copy them.
+
 ``perceive`` adds the steps kept from the original stack: the JPEG round
 trip that matches the training distribution (OpenCV's default encode and
 decode) and the resize guard. Where the perceiver is on the card and the
@@ -19,7 +27,8 @@ and then ``_run_pipeline``. Every other frame takes the host path:
 OpenCV's round trip at the frame's own size, the resize, the upload and
 ``_pipeline``. OpenCV is imported when first used (``ImportError`` where
 it is not installed). The monitor's counters ``perceiver.jpeg:device``
-and ``perceiver.jpeg:host`` count the frames each way.
+and ``perceiver.jpeg:host`` count the frames each way, and
+``segmenter.forward:<architecture>`` each frame segmented.
 """
 
 from __future__ import annotations
@@ -40,14 +49,26 @@ from acmpc_tpu_torch.perception.tracks import (
 from acmpc_tpu_torch.utils.monitor import MONITOR
 
 
+class PipelineOutput(tuple):
+    """``(drivable, semantics, tracks)``, with the segmenter's logits as
+    ``logits`` (None where a captured pipeline does not keep them)."""
+
+    def __new__(cls, drivable, semantics, tracks, logits):
+        out = super().__new__(cls, (drivable, semantics, tracks))
+        out.logits = logits
+        return out
+
+
 class Perceiver:
     def __init__(
         self,
         cfg: PerceptionConfig,
         variables: dict | None = None,
         device: torch.device | str | None = None,
+        keep_logits: bool = False,
     ):
         self.cfg = cfg
+        self.keep_logits = keep_logits
         self.camera = CameraInfo.from_config(cfg)
         self.segmenter = TrackSegmenter(cfg, variables, device)
         self.device = self.segmenter.device
@@ -56,8 +77,10 @@ class Perceiver:
         )
 
         def flat(image):
-            drivable, semantics, tracks = self._run_pipeline(image)
-            return [drivable, semantics, *(tracks[k] for k in TRACK_KEYS)]
+            out = self._run_pipeline(image)
+            drivable, semantics, tracks = out
+            logits = [out.logits] if keep_logits else []
+            return [drivable, semantics, *(tracks[k] for k in TRACK_KEYS), *logits]
 
         def raw(image):
             with MONITOR.device_span("perceiver.jpeg", image.device):
@@ -69,7 +92,8 @@ class Perceiver:
 
             def pipeline(image: torch.Tensor):
                 out = graphs(image)
-                return out[0], out[1], dict(zip(TRACK_KEYS, out[2:]))
+                tracks = dict(zip(TRACK_KEYS, out[2:2 + len(TRACK_KEYS)]))
+                return PipelineOutput(out[0], out[1], tracks, out[-1] if keep_logits else None)
 
             pipeline.graphs = graphs
             return pipeline
@@ -81,12 +105,12 @@ class Perceiver:
     @torch.no_grad()
     def _run_pipeline(self, image: torch.Tensor):
         """image: (H, W, 3) uint8 on the device -> (drivable, semantics,
-        tracks), all on the device."""
+        tracks) with the logits, all on the device."""
         with MONITOR.device_span("perceiver.segment", image.device):
-            drivable, semantics = self.segmenter._apply(image)
+            drivable, semantics, logits = self.segmenter._apply(image)
         with MONITOR.device_span("perceiver.extract", image.device):
             tracks = self.extractor.extract(drivable)
-        return drivable, semantics, tracks
+        return PipelineOutput(drivable, semantics, tracks, logits)
 
     # -- host preprocessing ---------------------------------------------
     def _encode_decode_image(self, image: np.ndarray) -> np.ndarray:
@@ -129,6 +153,7 @@ class Perceiver:
         with MONITOR.span("perceiver.perceive"):
             on_card = self._round_trip_on_card(image)
             MONITOR.count("perceiver.jpeg:device" if on_card else "perceiver.jpeg:host")
+            MONITOR.count(f"segmenter.forward:{self.segmenter.architecture}")
             if on_card:
                 image = np.ascontiguousarray(image)  # a strided view uploads as its frame
             else:

@@ -1,12 +1,20 @@
 """Segmentation inference runner.
 
 Counterpart of ``acmpc_tpu/perception/segmentation.py``: load the
-weights, normalise the frame, run the FPN, take the class argmax, and
-zero the classes above 1 to get the drivable mask. The FPN runs in the
+weights, normalise the frame, run the segmenter, take the class argmax,
+and zero the classes above 1 to get the drivable mask. The segmenter is
+the one ``perception.architecture`` names (``ARCHITECTURES``): the
+FPN-ResNet18 of the JAX package (``fpn_resnet18``, the default) or
+SegFormer-B2 (``segformer_b2``, the port's own). It runs in the
 configured precision as parameters and inputs of that dtype (no
 autocast), so the casts sit where the JAX package has them: the stored
-(fp16) parameters cast to the compute dtype at load, the frame cast and
-then divided by 255.
+parameters cast to the compute dtype at load, the frame cast and then
+divided by 255.
+
+Weights: the FPN's are a Flax variables tree (a ``.msgpack`` checkpoint,
+or an smp ``.pt``/``.pth`` state dict converted to one); SegFormer's a
+state dict under ``transformers``' names (a ``.pt``/``.pth`` file of
+``torch.save``). ``variables`` passes either form directly.
 
 ``TrackSegmenterAOT`` (the JAX package's ahead-of-time compiled
 variant) captures the forward as a CUDA graph at construction for the
@@ -16,8 +24,7 @@ frame; on the CPU it runs one warm frame.
 
 Deliberate difference from the JAX package: a missing checkpoint raises
 ``FileNotFoundError``; it never falls back to random weights. Callers
-that want other weights pass ``variables``, a Flax variables tree of
-numpy arrays.
+that want other weights pass ``variables``.
 """
 
 from __future__ import annotations
@@ -35,7 +42,9 @@ from acmpc_tpu_torch.models.fpn_resnet18 import (
     flax_tree_from_state_dict,
     state_dict_from_flax,
 )
+from acmpc_tpu_torch.models.segformer import SegformerForSemanticSegmentation, to_frame
 from acmpc_tpu_torch.ops.graph_loop import GraphCache
+from acmpc_tpu_torch.utils.monitor import MONITOR
 
 PRECISION = {
     "full": torch.float32,
@@ -45,24 +54,47 @@ PRECISION = {
 }
 
 
-def load_variables(path: str | pathlib.Path) -> dict:
-    """The Flax variables tree (numpy leaves, stored dtypes) of a
-    ``.msgpack`` (Flax serialization) or smp ``.pt``/``.pth`` checkpoint.
+FPN = "fpn_resnet18"
+SEGFORMER = "segformer_b2"
+ARCHITECTURES = (FPN, SEGFORMER)
+
+
+def load_variables(path: str | pathlib.Path, architecture: str = FPN) -> dict:
+    """The weights of a checkpoint as ``TrackSegmenter`` takes them: for
+    the FPN the Flax variables tree (numpy leaves, stored dtypes) of a
+    ``.msgpack`` (Flax serialization) or smp ``.pt``/``.pth``
+    checkpoint; for SegFormer the state dict of a ``.pt``/``.pth`` file.
     Raises ``FileNotFoundError`` when the file is missing."""
     p = pathlib.Path(path)
     if not p.is_file():
         raise FileNotFoundError(
             f"segmentation checkpoint {p} does not exist (perception.model_path)"
         )
-    if p.suffix == ".msgpack":
+    if p.suffix == ".msgpack" and architecture == FPN:
         return read_checkpoint(p)
     if p.suffix in (".pt", ".pth"):
         sd = torch.load(p, map_location="cpu", weights_only=True)
+        if architecture == SEGFORMER:
+            return sd
         return convert_torch_state_dict({k: v.numpy() for k, v in sd.items()})
-    raise ValueError(f"unknown weight format: {p.suffix}")
+    raise ValueError(f"unknown weight format for {architecture}: {p.suffix}")
+
+
+def _build_model(architecture: str, variables: dict) -> torch.nn.Module:
+    """The named segmenter (10 classes) holding ``variables``, in their
+    stored dtypes on the CPU."""
+    if architecture == FPN:
+        model = FPNResNet18(num_classes=10)
+        model.load_state_dict(state_dict_from_flax(variables), strict=True)
+    else:
+        model = SegformerForSemanticSegmentation()
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in variables.items()}, strict=True)
+    return model
 
 
 class TrackSegmenter:
+    architecture = FPN  # the configuration's, set at construction
+
     def __init__(
         self,
         cfg: PerceptionConfig,
@@ -73,10 +105,12 @@ class TrackSegmenter:
         self._width = cfg.image_width
         self._height = cfg.image_height
         self._dtype = PRECISION[cfg.precision]
+        self.architecture = cfg.architecture
+        if cfg.architecture not in ARCHITECTURES:
+            raise ValueError(f"perception.architecture {cfg.architecture!r} is none of {ARCHITECTURES}")
         if variables is None:
             variables = self.load_variables(cfg.model_path)
-        model = FPNResNet18(num_classes=10)
-        model.load_state_dict(state_dict_from_flax(variables), strict=True)
+        model = _build_model(cfg.architecture, variables)
         # floating parameters cast from the stored dtype to the compute
         # dtype, as the JAX package does at load
         self.model = (
@@ -86,32 +120,44 @@ class TrackSegmenter:
         )
 
     def load_variables(self, path: str | pathlib.Path) -> dict:
-        """The checkpoint's variables tree (:func:`load_variables`)."""
-        return load_variables(path)
+        """The checkpoint's weights for this segmenter's architecture
+        (:func:`load_variables`)."""
+        return load_variables(path, self.architecture)
 
     @property
     def dtype(self) -> torch.dtype:
         return self._dtype
 
     def save_variables(self, path: str | pathlib.Path):
-        """Write the model's parameters, in the compute dtype (bf16 as
-        fp32, which numpy lacks), as a Flax msgpack checkpoint."""
-        write_checkpoint(path, flax_tree_from_state_dict(self.model.state_dict()))
+        """Write the model's parameters in the compute dtype: the FPN's
+        as a Flax msgpack checkpoint (bf16 as fp32, which numpy lacks),
+        SegFormer's as a ``torch.save`` state dict (bf16 as fp32 too)."""
+        if self.architecture == SEGFORMER:
+            state = {k: (v.float() if v.dtype == torch.bfloat16 else v).cpu()
+                     for k, v in self.model.state_dict().items()}
+            torch.save(state, path)
+        else:
+            write_checkpoint(path, flax_tree_from_state_dict(self.model.state_dict()))
 
     # -- inference -------------------------------------------------------
     @torch.no_grad()
     def _apply(self, image: torch.Tensor):
         """image: (H, W, 3) uint8 on the model's device -> (drivable
-        (H, W) uint8, semantics (H, W) uint8)."""
+        (H, W) uint8, semantics (H, W) uint8, the model's own logits):
+        the FPN's float32 (1, H, W, 10), which the argmax reads;
+        SegFormer's (1, H / 4, W / 4, 10) in the compute dtype, which the
+        argmax reads resized to the frame (``to_frame``)."""
         x = image.to(self._dtype) / 255.0
         logits = self.model(x[None])
-        semantics = torch.argmax(logits, dim=-1)[0].to(torch.uint8)
+        full = logits if self.architecture == FPN else to_frame(logits, *image.shape[:2])
+        semantics = torch.argmax(full, dim=-1)[0].to(torch.uint8)
         drivable = torch.where(semantics > 1, 0, semantics).to(torch.uint8)
-        return drivable, semantics
+        return drivable, semantics, logits
 
     def segment_drivable_area(self, image):
         """(drivable_mask, semantics) of one (H, W, 3) uint8 frame."""
-        return self._apply(torch.as_tensor(image, device=self.device))
+        MONITOR.count(f"segmenter.forward:{self.architecture}")
+        return self._apply(torch.as_tensor(image, device=self.device))[:2]
 
 
 class TrackSegmenterAOT(TrackSegmenter):
@@ -127,7 +173,8 @@ class TrackSegmenterAOT(TrackSegmenter):
         device: torch.device | str | None = None,
     ):
         super().__init__(cfg, variables, device)
-        self._compiled = GraphCache(self._apply, "TrackSegmenter._apply")
+        # the masks alone: the logits are no output of the graph
+        self._compiled = GraphCache(lambda image: self._apply(image)[:2], "TrackSegmenter._apply")
         dummy = torch.zeros(
             (self._height, self._width, 3), dtype=torch.uint8, device=self.device
         )
@@ -138,4 +185,5 @@ class TrackSegmenterAOT(TrackSegmenter):
     def segment_drivable_area(self, image):
         """(drivable_mask, semantics) of one (H, W, 3) uint8 frame, through
         the captured forward."""
+        MONITOR.count(f"segmenter.forward:{self.architecture}")
         return tuple(self._compiled(torch.as_tensor(image, device=self.device)))

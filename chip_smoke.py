@@ -231,6 +231,24 @@ Phases, each printing one line:
      and 16 run the captured entries too (the loop's frame is
      ``_pipeline`` then ``jitted_get_control``; the agent's control
      thread calls ``jitted_get_control``, its oracle path ``jitted()``).
+  18. SegFormer-B2 (``models/segformer.py``) as the perceiver's segmenter
+     at 1280x736 bf16, with the plain reference's seeded random weights
+     (``perfbench/reference/segformer.py``: ``random_state``, the
+     classifier fitted to two sim frames' masks): ``_raw_pipeline`` (the
+     JPEG round trip, SegFormer and the extraction in one graph) against
+     eager on 8 sim frames, every output and the logits bit-equal; the
+     logits at stage 1's grid against the plain reference (float32, TF32
+     off) on each frame's round trip within the benchmark cell's limit,
+     and its float8 control outside it; each attention backend of
+     ``F.scaled_dot_product_attention`` timed on the card's stream (a
+     captured graph of calls) at the four stages' shapes, and the whole
+     captured pipeline with each pinned in turn; ``perceive`` a frame, the segmenter
+     alone, captured against eager; a profile of captured frames: the
+     kernels a frame by device time, the attention's kernels and their
+     share of its least time; with the monitor on, the SegFormer spans
+     under ``perceiver.segment`` and a ``segmenter.forward:segformer_b2``
+     count a frame. The kernels line gains the attention's row (route
+     ``library``).
 Then the kernels line, the card line and, last, the result line. Any
 failure raises and the exit code is not 0. Without a CUDA device it
 exits with code 2 and prints no result.
@@ -377,6 +395,9 @@ SHIPPED_FPN = ROOT / "data" / "models" / "segmentation" / "synthetic_fpn.msgpack
 COMPILED_STEPS = 200
 COMPILED_FRAMES = 8
 COMPILED_TIMED = 250
+SEGFORMER_FRAMES = 8
+SEGFORMER_SEED = 2**31 + 2020
+SEGFORMER_TIMED = 50
 # a trip of the loop kernel reads the flag (1 byte) and the trip count (8)
 # and writes the count (8)
 LOOP_TRIP_BYTES = 17
@@ -2806,9 +2827,225 @@ def phase_compiled() -> dict:
     return info
 
 
+def _graph_ms(fn, reps: int = 20) -> float:
+    """Device ms a call of ``fn``: ``reps`` calls captured as one CUDA
+    graph, replayed and timed by CUDA events (no launch gaps)."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_cuda_ms(graph.replay, 5) / reps
+
+
+def _attention_backends(perc, frame) -> dict:
+    """Each backend of ``F.scaled_dot_product_attention`` at SegFormer-B2's
+    four stages at 1280x736 in bf16 (queries, reduced keys, heads of 64):
+    device ms a call in a captured graph, None where the backend refuses
+    the shapes; each backend's sum over a frame's 16 blocks; and the
+    perceiver's captured pipeline a frame (ms a replay, 20 in a row) with
+    each backend pinned in turn."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from acmpc_tpu_torch.models import segformer as sf
+    from acmpc_tpu_torch.perception.perceiver import Perceiver
+
+    cfg = sf.SegformerConfig()
+    backends = (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                SDPBackend.MATH)
+    h, w = 736 // 4, 1280 // 4
+    out: dict = {}
+    for i in range(4):
+        if i:
+            h, w = h // 2, w // 2
+        r = cfg.sr_ratios[i]
+        t, kv, heads = h * w, (h // r) * (w // r), cfg.num_attention_heads[i]
+        g = torch.Generator(device=DEVICE).manual_seed(i)
+        q = torch.randn(1, heads, t, 64, generator=g, device=DEVICE, dtype=torch.bfloat16)
+        k = torch.randn(1, heads, kv, 64, generator=g, device=DEVICE, dtype=torch.bfloat16)
+        v = torch.randn(1, heads, kv, 64, generator=g, device=DEVICE, dtype=torch.bfloat16)
+        row = {"queries": t, "keys": kv, "heads": heads}
+        for backend in backends:
+            def call(backend=backend):
+                with sdpa_kernel([backend]):
+                    return F.scaled_dot_product_attention(q, k, v)
+
+            try:
+                row[backend.name] = _graph_ms(call)
+            except RuntimeError as err:
+                row[backend.name] = None
+                row[f"{backend.name}_refused"] = str(err).splitlines()[0][:120]
+        out[f"stage{i + 1}"] = row
+    frame_ms = {}
+    for b in backends:
+        per = [out[f"stage{i + 1}"][b.name] for i in range(4)]
+        frame_ms[b.name] = None if None in per else sum(d * ms for d, ms in zip(cfg.depths, per))
+    out["frame_ms"] = frame_ms
+    timed = {k: v for k, v in frame_ms.items() if v is not None}
+    out["fastest"] = min(timed, key=timed.get)
+    pinned = sf.ATTENTION_BACKENDS
+    pipeline = {}
+    try:
+        for b in backends[:3]:
+            sf.ATTENTION_BACKENDS = [b]
+            other = Perceiver(perc.cfg, perc.segmenter.model.state_dict(), device=DEVICE)
+            try:
+                pipeline[b.name] = time_cuda_ms(lambda: other._raw_pipeline(frame), 20)
+            except RuntimeError as err:
+                pipeline[b.name] = str(err).splitlines()[0][:120]
+    finally:
+        sf.ATTENTION_BACKENDS = pinned
+    out["pipeline_ms"] = pipeline
+    return out
+
+
+def phase_segformer() -> dict:
+    """SegFormer-B2 as the perceiver's segmenter at 1280x736 bf16: the
+    captured pipeline against eager (bit-equal), the logits against the
+    plain reference and its float8 control, the attention backends, the
+    frame's times, its kernels and its spans."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from acmpc_tpu_torch.bench import perception_loop as loop
+    from acmpc_tpu_torch.models import segformer as sf
+    from acmpc_tpu_torch.ops.jpeg_round_trip import jpeg_round_trip_reference
+    from acmpc_tpu_torch.perception.perceiver import Perceiver
+    from acmpc_tpu_torch.perception.tracks import TRACK_KEYS
+    from acmpc_tpu_torch.utils.monitor import MONITOR
+    from perfbench.metrics._peaks import BF16_FLOP_PER_S, HBM_BYTES_PER_S
+    from perfbench.metrics._segformer_flops import segformer_flops
+    from perfbench.metrics.segformer_attention_roofline import FRAGMENTS
+    from perfbench.reference.segformer import SHAPE_KEYS, SegFormer, fit_classifier, random_state
+
+    t_phase = time.perf_counter()
+    limit = json.loads((ROOT / "perfbench" / "traffic" / "perceive_b1.json").read_text())["logit_gap_limit"]
+    cfg = dataclasses.replace(loop.perception_config(precision="bf16"), architecture="segformer_b2",
+                              model_path=None)
+    shape = {k: getattr(sf.SegformerConfig(), k) for k in SHAPE_KEYS}
+    centre, left, right, _ = loop.circuit()
+    host, masks = loop.sim_frames(loop.make_sim(cfg, centre, left, right), centre, SEGFORMER_FRAMES)
+    frames = [torch.as_tensor(f, device=DEVICE) for f in host]
+    variables = fit_classifier(random_state(SEGFORMER_SEED, shape), shape,
+                               [jpeg_round_trip_reference(f) for f in frames[:2]], masks[:2], DEVICE)
+    perc = Perceiver(cfg, variables, device=DEVICE, keep_logits=True)
+    info: dict = {"torch": torch.__version__, "frame": [cfg.image_height, cfg.image_width]}
+
+    # (a) the captured pipeline against eager, every output and the logits
+    mismatches = []
+    captured = []
+    for i, frame in enumerate(frames):
+        eager, graph = perc._run_pipeline(jpeg_round_trip_reference(frame)), perc._raw_pipeline(frame)
+        pairs = {"drivable": (eager[0], graph[0]), "semantics": (eager[1], graph[1]),
+                 "logits": (eager.logits, graph.logits), **{k: (eager[2][k], graph[2][k]) for k in TRACK_KEYS}}
+        mismatches += [f"frame {i}: {k}" for k, (a, b) in pairs.items() if not torch.equal(a, b)]
+        captured.append(graph.logits)
+    info["graph_vs_eager"] = {"frames": len(frames), "bit_equal": not mismatches, "mismatches": mismatches[:10]}
+    if mismatches:
+        raise RuntimeError(f"SegFormer's captured pipeline differs from eager: {mismatches[:10]}")
+
+    # (b) the logits at stage 1's grid against the plain reference, and its
+    # float8 control
+    ref, low = SegFormer(variables, shape, DEVICE), SegFormer(variables, shape, DEVICE, fp8=True)
+    gaps, controls, drivable = [], [], []
+    for frame, got in zip(frames, captured):
+        image = jpeg_round_trip_reference(frame)
+        want = ref.coarse_logits(image)
+        scale = want.abs().max().double()
+        gaps.append(float((got[0].permute(2, 0, 1).double() - want.double()).abs().max() / scale))
+        controls.append(float((low.coarse_logits(image).double() - want.double()).abs().max() / scale))
+        drivable.append(float((torch.argmax(want, dim=0) == 1).float().mean()))
+    info["reference"] = {"logit_gap": gaps, "fp8_logit_gap": controls, "limit": limit,
+                         "drivable_share": drivable}
+    if not max(gaps) <= limit or not min(controls) > limit:
+        raise RuntimeError(f"SegFormer against the reference: {info['reference']}")
+
+    # (c) the attention backends at the four stages' shapes
+    info["attention_backends"] = _attention_backends(perc, frames[0])
+    info["pinned"] = [b.name for b in sf.ATTENTION_BACKENDS]
+
+    # (d) a frame's times: perceive (host frame in, tracks to the host), the
+    # captured pipeline, the segmenter alone eager
+    def perceive(i=[0]):
+        i[0] += 1
+        out = perc.perceive(host[i[0] % len(host)])
+        return [out[k].cpu() for k in ("left", "right", "centreline")]
+
+    walls = []
+    for _ in range(SEGFORMER_TIMED):
+        t0 = time.perf_counter()
+        perceive()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    info["perceive_ms"] = {"p50": float(np.percentile(walls, 50)), "p95": float(np.percentile(walls, 95))}
+    info["captured_pipeline_ms"] = time_cuda_ms(lambda: perc._raw_pipeline(frames[0]), SEGFORMER_TIMED)
+    info["segmenter_eager_ms"] = time_cuda_ms(lambda: perc.segmenter._apply(frames[0]), SEGFORMER_TIMED)
+
+    # (e) the kernels of captured frames, by device time a frame
+    n_prof = 10
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            perc._raw_pipeline(frames[0])
+        torch.cuda.synchronize()
+    table: dict = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            row = table.setdefault(evt.name, [0.0, 0])
+            row[0] += (evt.time_range.end - evt.time_range.start) * 1e-3 / n_prof
+            row[1] += 1
+    top = sorted(table.items(), key=lambda kv: -kv[1][0])
+    info["kernels_per_frame"] = [[name[:140], ms, n // n_prof] for name, (ms, n) in top[:16]]
+    info["device_ms_per_frame"] = sum(ms for ms, _ in table.values())
+    att = [(name, row) for name, row in table.items() if any(f in name for f in FRAGMENTS)]
+    work = segformer_flops(cfg.image_height, cfg.image_width, {**shape, "num_channels": 3})
+    least_ms = 1e3 * max(work["attention"] / BF16_FLOP_PER_S, work["attention_bytes"] / HBM_BYTES_PER_S)
+    att_ms = sum(row[0] for _, row in att)
+    info["attention"] = {
+        "kernels": sorted({name[:140] for name, _ in att}), "launches_per_frame": sum(r[1] for _, r in att) // n_prof,
+        "ms_per_frame": att_ms, "least_ms": least_ms, "roofline_pct": 100.0 * least_ms / att_ms if att_ms else None,
+        "gflop": work["attention"] / 1e9,
+    }
+    if not att:
+        raise RuntimeError(f"no attention kernel matches {FRAGMENTS}: {list(table)[:20]}")
+    info["frame_gflop"] = work["total"] / 1e9
+    info["mfu_pct_captured"] = 100.0 * work["total"] / BF16_FLOP_PER_S / (info["captured_pipeline_ms"] * 1e-3)
+
+    # (f) the spans and the counter, with the monitor on (a graph of its own)
+    MONITOR.enable()
+    try:
+        MONITOR.clear()
+        for i in range(3):
+            perc.perceive(host[i])
+        torch.cuda.synchronize()
+        for i in range(3):
+            perc.perceive(host[i])
+        torch.cuda.synchronize()
+        taken = MONITOR.take()
+    finally:
+        MONITOR.disable()
+        MONITOR.clear()
+    samples = collections.Counter(name for name, _, _ in taken["device"])
+    want_spans = [f"segformer.stage{i}" for i in range(1, 5)] + ["segformer.decode", "segformer.attention"]
+    info["spans"] = {"samples": {k: samples[k] for k in want_spans + ["perceiver.segment"]},
+                     "counter": taken["counters"].get("segmenter.forward:segformer_b2", 0)}
+    if taken["counters"].get("segmenter.forward:segformer_b2") != 6 or not all(samples[k] for k in want_spans):
+        raise RuntimeError(f"SegFormer's spans or counter: {info['spans']}, {dict(taken['counters'])}")
+    info["phase_s"] = time.perf_counter() - t_phase
+    info["card"] = card_line()
+    emit("phase 18 segformer", info)
+    return info
+
+
 def kernels_line(
     kernel: dict, main: dict, mapping: dict, sweep: dict, multi: dict, perception: dict, agent: dict,
-    tools: dict, parallel: dict, vmapped: dict, training: dict, compiled: dict,
+    tools: dict, parallel: dict, vmapped: dict, training: dict, compiled: dict, segformer: dict,
 ) -> dict:
     """One row per kernel variant: launches summed over the paths
     (phases 4, 6, 8-10 and 12-17; phase 5 and 7 are single-scenario
@@ -2937,6 +3174,22 @@ def kernels_line(
                 "bound_by": "bytes",
                 "library_ms": None,
             },
+            {
+                # SegFormer's attention: PyTorch's kernels through the
+                # pinned backend, ms a frame (16 blocks) under the profiler;
+                # max_abs_err the worst logit gap of the frame's reference
+                "name": "segformer attention (" + "+".join(segformer["pinned"]) + ")",
+                "route": "library",
+                "source": "torch.nn.functional.scaled_dot_product_attention",
+                "replaces": None,
+                "launches": segformer["attention"]["launches_per_frame"],
+                "max_abs_err": max(segformer["reference"]["logit_gap"]),
+                "ms": segformer["attention"]["ms_per_frame"],
+                "plain_ms": segformer["attention_backends"]["frame_ms"]["MATH"],
+                "bound_ms": segformer["attention"]["least_ms"],
+                "bound_by": "operations",
+                "library_ms": segformer["attention"]["ms_per_frame"],
+            },
         ]
     }
 
@@ -2968,9 +3221,10 @@ def main() -> int:
     vmapped = phase_vmapped()
     training = phase_training()
     compiled = phase_compiled()
+    segformer = phase_segformer()
     print(json.dumps(kernels_line(
         kernel, main_info, mapping, sweep, multi, perception, agent, tools, parallel, vmapped, training,
-        compiled,
+        compiled, segformer,
     )))
     print(card_line())
     print(json.dumps({

@@ -1589,3 +1589,53 @@ def test_perceive_spans_and_counters_on_card(cuda_device, monitor_on):
     assert "perceiver.jpeg" not in names
     assert taken["counters"]["perceiver.jpeg:host"] == 1
     assert "perceiver.jpeg:device" not in taken["counters"]
+
+
+def _segformer_perceiver(device):
+    import dataclasses
+
+    from acmpc_tpu_torch.bench import perception_loop as loop
+    from acmpc_tpu_torch.models.segformer import SegformerConfig
+    from acmpc_tpu_torch.perception.perceiver import Perceiver
+    from perfbench.reference.segformer import SHAPE_KEYS, random_state
+
+    cfg = dataclasses.replace(loop.perception_config(precision="bf16"), architecture="segformer_b2", model_path=None)
+    shape = {k: getattr(SegformerConfig(), k) for k in SHAPE_KEYS}
+    variables = random_state(2**31 + 20, shape)
+    return cfg, shape, variables, Perceiver(cfg, variables, device=device, keep_logits=True)
+
+
+@pytest.mark.cuda
+def test_segformer_forward_matches_the_reference_on_card(cuda_device):
+    # 1280x736 in bf16 against the plain float32 reference on the frame's
+    # round trip, at stage 1's grid, within the benchmark cell's limit
+    # (PERF.md: the readings it was set from)
+    import json
+
+    from acmpc_tpu_torch.ops.jpeg_round_trip import jpeg_round_trip_reference
+    from perfbench.reference.segformer import SegFormer
+
+    limit = json.loads((ROOT / "perfbench" / "traffic" / "perceive_b1.json").read_text())["logit_gap_limit"]
+    cfg, shape, variables, perc = _segformer_perceiver(cuda_device)
+    frame = torch.as_tensor(_sim_frame(cfg), device=cuda_device)
+    got = perc._raw_pipeline(frame).logits
+    want = SegFormer(variables, shape, cuda_device).coarse_logits(jpeg_round_trip_reference(frame))
+    assert got.shape == (1, 184, 320, 10) and got.dtype == torch.bfloat16
+    gap = float((got[0].permute(2, 0, 1).double() - want.double()).abs().max() / want.abs().max())
+    assert gap <= limit
+
+
+@pytest.mark.cuda
+def test_segformer_graph_equals_eager_on_card(cuda_device):
+    from acmpc_tpu_torch.ops.jpeg_round_trip import jpeg_round_trip_reference
+    from acmpc_tpu_torch.perception.tracks import TRACK_KEYS
+
+    cfg, _, _, perc = _segformer_perceiver(cuda_device)
+    frame = torch.as_tensor(_sim_frame(cfg), device=cuda_device)
+    for _ in range(2):  # the capture, then a replay
+        graph = perc._raw_pipeline(frame)
+    eager = perc._run_pipeline(jpeg_round_trip_reference(frame))
+    assert torch.equal(graph.logits, eager.logits)
+    assert torch.equal(graph[0], eager[0]) and torch.equal(graph[1], eager[1])
+    for k in TRACK_KEYS:
+        assert torch.equal(graph[2][k], eager[2][k]), k

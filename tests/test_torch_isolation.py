@@ -47,7 +47,7 @@ def test_import_pulls_in_no_jax():
     for name in (
         "localise.track_map", "runtime.commands", "mpc.multi_track",
         "bench.lap_sweep", "bench.full_lap", "bench.lap_step",
-        "perception.tracks", "perception.perceiver", "models.fpn_resnet18",
+        "perception.tracks", "perception.perceiver", "models.fpn_resnet18", "models.segformer",
         "models.checkpoint", "ops.track_chain", "runtime.sim",
         "bench.perception_loop", "localise.particle_filter", "localise.localiser",
         "localise.benchmarking", "localise.benchmarking.recording",

@@ -184,7 +184,7 @@ def test_cpu_perceive_counts_the_host_path(small_perceiver):
     finally:
         MONITOR.disable()
         MONITOR.clear()
-    assert taken["counters"] == {"perceiver.jpeg:host": 1}
+    assert taken["counters"] == {"perceiver.jpeg:host": 1, "segmenter.forward:fpn_resnet18": 1}
     assert "perceiver.jpeg" not in {s[0] for s in taken["spans"]}
     # the host path feeds the pipeline OpenCV's round trip, which the plain
     # version equals

@@ -131,7 +131,10 @@ def _random_mask(seed: int) -> np.ndarray:
 def test_perception_config_matches_jax(track):
     j = j_load_config(ROOT / "configs" / f"{track}.yaml").perception
     t = load_config(ROOT / "configs" / f"{track}.yaml").perception
-    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    # every field of JAX's; the port's own ``architecture`` names the FPN
+    port = dataclasses.asdict(t)
+    assert port.pop("architecture") == "fpn_resnet18"
+    assert dataclasses.asdict(j) == port
     assert t.camera_position == tuple(t.camera_position) and len(t.camera_position) == 3
 
 

@@ -55,7 +55,10 @@ def _pid_sequence(seed: int, n: int = 400):
 def test_agent_config_equals_jax(track):
     path = ROOT / "configs" / f"{track}.yaml"
     ours, ref = load_config(path), j_load_config(path)
-    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    # every field of JAX's; the port's own ``perception.architecture`` names the FPN
+    port = dataclasses.asdict(ours)
+    assert port["perception"].pop("architecture") == "fpn_resnet18"
+    assert port == dataclasses.asdict(ref)
     for name in ("throttle_pid", "brake_pid", "steering_pid"):
         assert isinstance(getattr(ours, name), PIDConfig)
     assert (ours.map_path, ours.create_map, ours.n_mapping_laps) == (ref.map_path, ref.create_map, ref.n_mapping_laps)

@@ -133,3 +133,22 @@ def test_layer_numbers_of_the_round_trip_on_the_card():
     # samples with no host span at all (a window after the capture) still count
     program = trace_split.per_request(_taken([], device[:2]), 2)
     assert trace_split.layer_numbers(program, 1) == pytest.approx({"jpeg_device_ms": 0.025, "graph_captures": 0})
+
+
+def test_layer_numbers_of_segformer_spans():
+    # two frames: four stage samples, the head's and 16 attention samples
+    # each (one a block), nested under the segmenter's device span
+    device = []
+    for request in (1, 2):
+        device += [("perceiver.segment", request, 4.0), ("segformer.decode", request, 1.5)]
+        device += [(f"segformer.stage{i}", request, 0.5) for i in range(1, 5)]
+        device += [("segformer.attention", request, 0.05)] * 16
+    program = trace_split.per_request(_taken([], device, {"segmenter.forward:segformer_b2": 2}), 2)
+    got = trace_split.layer_numbers(program, 1)
+    assert got == pytest.approx({
+        "segment_device_ms": 4.0, "segformer_stage1_device_ms": 0.5, "segformer_stage2_device_ms": 0.5,
+        "segformer_stage3_device_ms": 0.5, "segformer_stage4_device_ms": 0.5, "segformer_decode_device_ms": 1.5,
+        "segformer_attention_device_ms": 0.8, "graph_captures": 0})
+    assert program["counters"] == {"segmenter.forward:segformer_b2": 2}
+    sums = trace_split.bounding_sums(got, {}, [0.005])
+    assert sums == {"segformer stages + decode <= segment_device_ms": pytest.approx((3.5, 4.0))}

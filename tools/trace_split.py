@@ -88,7 +88,8 @@ def layer_numbers(program: dict, batch: int) -> dict:
     """The per-layer numbers a request, named as the benchmark would
     report them (``.b<batch>`` where the batch is in the name); a number
     whose spans (or, for a device number, their samples) were not
-    recorded is left out."""
+    recorded is left out. SegFormer's attention is the sum of its blocks'
+    samples (16 a frame at B2's depths)."""
     spans = program["spans"]
 
     def total(kind, *names):
@@ -102,6 +103,9 @@ def layer_numbers(program: dict, batch: int) -> dict:
         "upload_ms": total("host_ms", "perceiver.upload"),
         "segment_device_ms": total("device_ms", "perceiver.segment"),
         "extract_device_ms": total("device_ms", "perceiver.extract"),
+        **{f"segformer_stage{i}_device_ms": total("device_ms", f"segformer.stage{i}") for i in range(1, 5)},
+        "segformer_decode_device_ms": total("device_ms", "segformer.decode"),
+        "segformer_attention_device_ms": total("device_ms", "segformer.attention"),
         "graph_io_ms" + b: total("host_ms", "graph.inputs", "graph.outputs"),
         "prepare_device_ms" + b: total("device_ms", "mpc.prepare"),
         "factor_device_ms" + b: total("device_ms", "qp.factor"),
@@ -117,7 +121,8 @@ def bounding_sums(numbers: dict, bench_spans: dict, latencies_s: list) -> dict:
     """The sums the per-layer numbers must stay under, each as
     (sum, bound): the host JPEG and upload inside the benchmark's
     perception time, the three device numbers of a B = 1 step inside its
-    control time, the four of the B = 256 step inside its wall."""
+    control time, SegFormer's stages and head inside the segmenter's
+    device time, the four of the B = 256 step inside its wall."""
     mean_ms = lambda xs: 1e3 * statistics.fmean(xs)  # noqa: E731
     out = {}
     if "jpeg_ms" in numbers and "perception" in bench_spans:
@@ -126,6 +131,9 @@ def bounding_sums(numbers: dict, bench_spans: dict, latencies_s: list) -> dict:
     step = [numbers.get(f"{k}_device_ms.b1") for k in ("prepare", "factor", "iterate")]
     if None not in step and "control" in bench_spans:
         out["b1 device <= control_ms.b1"] = (sum(step), mean_ms(bench_spans["control"]))
+    seg = [numbers.get(f"segformer_{k}_device_ms") for k in ("stage1", "stage2", "stage3", "stage4", "decode")]
+    if None not in seg and "segment_device_ms" in numbers:
+        out["segformer stages + decode <= segment_device_ms"] = (sum(seg), numbers["segment_device_ms"])
     sweep = [numbers.get(f"{k}_device_ms.b256") for k in ("prepare", "factor", "iterate", "lap")]
     if None not in sweep:
         out["b256 device <= step wall"] = (sum(sweep), mean_ms(latencies_s))
