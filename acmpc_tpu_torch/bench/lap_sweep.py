@@ -6,9 +6,9 @@ scenario at once, each car samples its active command and a kinematic
 bicycle integrates it. The scenario axis is written out in front of
 every tensor. ``run`` solves each step with ``batched_get_control``
 (every scenario as it would be alone), ``run_fused`` with the fused,
-fixed-rho engine; both dispatch the steps from the host and read back
-only the solve's chunk flag, so in real-time-iteration mode (a fixed
-ADMM budget per solve) the loop never waits on the card.
+fixed-rho engine. ``run`` dispatches each step from the host and reads
+back the solve's chunk flags; ``fused_step``, on the card, is one CUDA
+graph a step, its chunk loop a WHILE node, and reads nothing back.
 
 The per-scenario runtime knobs (start index, lateral offset, runtime
 speed cap) are the perturbation axes of the robustness sweeps.
@@ -26,6 +26,7 @@ from acmpc_tpu_torch.device import resolve_device
 from acmpc_tpu_torch.geometry.path import wrap_to_pi
 from acmpc_tpu_torch.localise.track_map import TrackMap
 from acmpc_tpu_torch.mpc.spatial_mpc import MPCState, SpatialMPC, shift_warm_start
+from acmpc_tpu_torch.ops.graph_loop import GraphCache
 from acmpc_tpu_torch.utils.monitor import MONITOR
 
 
@@ -78,6 +79,13 @@ class CarState:
     y: torch.Tensor
     yaw: torch.Tensor
     v: torch.Tensor
+
+
+# the compiled step's flat inputs and outputs: the cars' and the states'
+# fields, then the step's metrics in the order the eager step makes them
+_CAR_FIELDS = tuple(f.name for f in dataclasses.fields(CarState))
+_STATE_FIELDS = tuple(f.name for f in dataclasses.fields(MPCState))
+_METRICS = ("v", "offtrack", "solved", "map_index", "control_iterations", "control_status")
 
 
 class LapSweep:
@@ -133,6 +141,7 @@ class LapSweep:
                 max(1, int(round(37.5 / spacing))),
                 device=device,
             )
+        self._fused_graphs = GraphCache(self._fused_flat, "LapSweep.fused_step")
 
     def _runtime_v_max(self, grid_v_max, i0):
         """Per-step speed cap: the grid's cap, gated by the windowed mean
@@ -242,42 +251,78 @@ class LapSweep:
         """One closed-loop step of every scenario: windows, the shifted
         warm start (real-time iteration: the carried iterates advance by
         the stages each window slid), one batched MPC solve through
-        ``get_control``, integration. Returns (cars, states, metrics, i0)."""
+        ``get_control``, integration. Returns (cars, states, metrics, i0).
+        The caller opens its ``sweep.step`` span."""
         device = self._centre.device
-        with MONITOR.span("sweep.step"):
-            with MONITOR.device_span("sweep.window", device):
-                refs, i0 = self._ego_window(cars)
-                k = self._shift_stages(i0, prev_i0)
-                localised = torch.full(i0.shape, self._speeds is not None, device=i0.device)
-                v_max = self._runtime_v_max(v_max, i0)
-            states = shift_warm_start(states, k, self.mpc.horizon)
-            states, diags = get_control(states, refs, v_max, is_localised=localised)
-            with MONITOR.device_span("sweep.integrate", device):
-                cars, metrics = self._integrate(cars, states, i0)
+        with MONITOR.device_span("sweep.window", device):
+            refs, i0 = self._ego_window(cars)
+            k = self._shift_stages(i0, prev_i0)
+            localised = torch.full(i0.shape, self._speeds is not None, device=i0.device)
+            v_max = self._runtime_v_max(v_max, i0)
+        states = shift_warm_start(states, k, self.mpc.horizon)
+        states, diags = get_control(states, refs, v_max, is_localised=localised)
+        with MONITOR.device_span("sweep.integrate", device):
+            cars, metrics = self._integrate(cars, states, i0)
         metrics["control_iterations"] = diags.control_iterations
         metrics["control_status"] = diags.control_status
         return cars, states, metrics, i0
 
-    def fused_step(self, cars: CarState, states: MPCState, v_max, prev_i0):
-        """:meth:`_step` on the fused, fixed-rho engine
-        (``batched_get_control_fused``)."""
-        return self._step(cars, states, v_max, prev_i0, self.mpc.batched_get_control_fused)
+    def _fused_flat(self, *flat):
+        """The fused step over flat tensors, the function that
+        :meth:`fused_step` captures: the cars' fields, the states',
+        ``v_max`` and ``prev_i0`` in; the cars', the states', the
+        metrics (``_METRICS``) and ``i0`` out. The MPC's entry is looked
+        up at each call, so that a replacement of it takes effect where
+        the step runs eagerly."""
+        n_car, n_state = len(_CAR_FIELDS), len(_STATE_FIELDS)
+        cars = CarState(*flat[:n_car])
+        states = MPCState(*flat[n_car : n_car + n_state])
+        v_max, prev_i0 = flat[n_car + n_state :]
+        cars, states, metrics, i0 = self._step(
+            cars, states, v_max, prev_i0, self.mpc.batched_get_control_fused
+        )
+        return [
+            *(getattr(cars, f) for f in _CAR_FIELDS),
+            *(getattr(states, f) for f in _STATE_FIELDS),
+            *(metrics[k] for k in _METRICS),
+            i0,
+        ]
 
-    def _run(self, grid: SweepGrid, n_steps: int, get_control):
+    def fused_step(self, cars: CarState, states: MPCState, v_max, prev_i0):
+        """One closed-loop step (:meth:`_step`) on the fused, fixed-rho engine
+        (``batched_get_control_fused``), as a compiled entry. On the card,
+        the first call for an input signature (the batch) captures the
+        whole step as one CUDA graph (``ops/graph_loop``): the windows,
+        the shifted warm starts, the batched prepare, scaling and
+        factorisation, the chunk loop as one WHILE node, the extract and
+        the integration. Later calls copy the inputs into the graph's
+        buffers, replay it and return clones of its outputs, with no host
+        read. A capture that fails raises. On the CPU the step runs
+        eagerly."""
+        n_car, n_state = len(_CAR_FIELDS), len(_STATE_FIELDS)
+        with MONITOR.span("sweep.step"):
+            out = self._fused_graphs(
+                *(getattr(cars, f) for f in _CAR_FIELDS),
+                *(getattr(states, f) for f in _STATE_FIELDS),
+                v_max,
+                prev_i0,
+            )
+        metrics = dict(zip(_METRICS, out[n_car + n_state : -1]))
+        return CarState(*out[:n_car]), MPCState(*out[n_car : n_car + n_state]), metrics, out[-1]
+
+    def _run(self, grid: SweepGrid, n_steps: int, step):
         cars, states, prev_i0 = self.start(grid)
         per_step = []
         for _ in range(n_steps):
-            cars, states, metrics, prev_i0 = self._step(
-                cars, states, grid.v_max, prev_i0, get_control
-            )
+            cars, states, metrics, prev_i0 = step(cars, states, grid.v_max, prev_i0)
             per_step.append(metrics)
         return cars, _stack_steps(per_step)
 
     def run_fused(self, grid: SweepGrid, n_steps: int):
         """Closed-loop sweep with the whole scenario batch in each step,
-        on the fused engine. Returns (final cars, metrics stacked
-        (B, n_steps))."""
-        return self._run(grid, n_steps, self.mpc.batched_get_control_fused)
+        each step one :meth:`fused_step`. Returns (final cars, metrics
+        stacked (B, n_steps))."""
+        return self._run(grid, n_steps, self.fused_step)
 
     def run(self, grid: SweepGrid, n_steps: int):
         """Closed-loop sweep of every scenario, each step one
@@ -285,7 +330,12 @@ class LapSweep:
         alone): the counterpart of the JAX package's ``jit(vmap(scenario))``
         of a scan. Returns (final cars (B,), metrics stacked
         (B, n_steps))."""
-        return self._run(grid, n_steps, self.mpc.batched_get_control)
+
+        def step(cars, states, v_max, prev_i0):
+            with MONITOR.span("sweep.step"):
+                return self._step(cars, states, v_max, prev_i0, self.mpc.batched_get_control)
+
+        return self._run(grid, n_steps, step)
 
     def summarise(self, metrics, n_steps: int) -> dict:
         v = _host(metrics["v"])

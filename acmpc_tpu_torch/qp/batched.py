@@ -4,7 +4,10 @@ Counterpart of ``acmpc_tpu/qp/batched.py``: scaling, factorisation and
 residuals are batched tensor code, every iteration chunk is one launch of
 the ADMM chunk kernel (``ops/admm_chunk.py``) over the whole batch, and
 the straggler policy is explicit: finished scenarios FREEZE their
-iterates while the rest keep iterating.
+iterates while the rest keep iterating. The chunk loop runs through
+``ops/graph_loop.device_while``: eagerly one host read of the done flags
+a chunk, under a CUDA graph capture (``LapSweep.fused_step``) one WHILE
+node that the card runs with no host read.
 
 Restrictions against the general solver: fixed rho (no adaptive
 refactorisation; the MPC configuration runs fixed), primal-infeasibility
@@ -18,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from acmpc_tpu_torch.ops.admm_chunk import admm_chunk
+from acmpc_tpu_torch.ops.graph_loop import device_while
 from acmpc_tpu_torch.qp.admm import (
     _INF,
     STATUS_MAX_ITER,
@@ -74,7 +78,8 @@ def _solve_box_qp_batched(P, q, A, l, u, cfg=ADMMConfig(), x0=None, y0=None, *, 
         As = As.contiguous()
         A_chunk, A_d, g = _chunk_operator(As, box)
         box_kw = {} if g is None else {"g": g, "sigma": cfg.sigma}
-        rho_vec = _rho_vector(torch.tensor(cfg.rho, dtype=dtype, device=device), ls, us)
+        # filled on the device: a copy from host memory cannot be captured
+        rho_vec = _rho_vector(torch.full((), cfg.rho, dtype=dtype, device=device), ls, us)
         W, c0 = _build_operator(_factor(Ps, As, rho_vec, cfg.sigma), As, qs, cfg.sigma, A_d)
 
         x = torch.zeros(B, n, dtype=dtype, device=device) if x0 is None else x0 / d
@@ -119,45 +124,50 @@ def _solve_box_qp_batched(P, q, A, l, u, cfg=ADMMConfig(), x0=None, y0=None, *, 
             r_dual=r_d,
         )
 
-    it = 0
-    done = full(False, torch.bool)
-    r_p = full(float("inf"), dtype)
-    r_d = full(float("inf"), dtype)
-    status = full(STATUS_MAX_ITER, torch.int32)
-    its = full(cfg.max_iter, torch.int32)
+    def body(carry):
+        x, z, y, it, done, r_p, r_d, status, its = carry
+        # converged scenarios skip the chunk's iterations in the kernel
+        active = ~done if cfg.tile_skip else None
+        xn, zn, yn = chunk(x, z, y, cfg.check_every, active=active)
+        # frozen scenarios keep their converged/certified iterates
+        keep = done[:, None]
+        xn = torch.where(keep, x, xn)
+        zn = torch.where(keep, z, zn)
+        yn = torch.where(keep, y, yn)
+        it = it + cfg.check_every
+        r_pn, r_dn, converged, near = residuals(xn, yn, zn)
+        prim_inf = prim_inf_certificate(yn - y) & ~converged & ~done
+        newly_done = (converged | prim_inf) & ~done
+        # still-running scenarios carry the near flag, so a max_iter exit
+        # reports STATUS_SOLVED_INACCURATE within inaccurate_factor * tol
+        status = torch.where(
+            newly_done,
+            torch.where(converged, STATUS_SOLVED, STATUS_PRIMAL_INFEASIBLE),
+            torch.where(
+                ~done & near,
+                STATUS_SOLVED_INACCURATE,
+                torch.where(~done, STATUS_MAX_ITER, status),
+            ),
+        ).to(torch.int32)
+        its = torch.where(newly_done, it, its).to(torch.int32)
+        r_p = torch.where(done, r_p, r_pn)
+        r_d = torch.where(done, r_d, r_dn)
+        done = done | newly_done
+        return xn, zn, yn, it, done, r_p, r_d, status, its
+
+    def cond(carry):
+        it, done = carry[3], carry[4]
+        return ~done.all() & (it < cfg.max_iter)
+
+    # the chunk loop as JAX's lax.while_loop: the stopping test stays on
+    # the device (one WHILE node under a CUDA graph capture)
+    carry = (
+        x, z, y, torch.zeros((), dtype=torch.int32, device=device), full(False, torch.bool),
+        full(float("inf"), dtype), full(float("inf"), dtype),
+        full(STATUS_MAX_ITER, torch.int32), full(cfg.max_iter, torch.int32),
+    )
     with MONITOR.device_span("qp.iterate", device):
-        while it < cfg.max_iter:
-            with MONITOR.span("qp.read_done"):
-                if bool(done.all()):  # host read per chunk
-                    break
-            # converged scenarios skip the chunk's iterations in the kernel
-            active = ~done if cfg.tile_skip else None
-            xn, zn, yn = chunk(x, z, y, cfg.check_every, active=active)
-            # frozen scenarios keep their converged/certified iterates
-            keep = done[:, None]
-            xn = torch.where(keep, x, xn)
-            zn = torch.where(keep, z, zn)
-            yn = torch.where(keep, y, yn)
-            it += cfg.check_every
-            r_pn, r_dn, converged, near = residuals(xn, yn, zn)
-            prim_inf = prim_inf_certificate(yn - y) & ~converged & ~done
-            newly_done = (converged | prim_inf) & ~done
-            # still-running scenarios carry the near flag, so a max_iter exit
-            # reports STATUS_SOLVED_INACCURATE within inaccurate_factor * tol
-            status = torch.where(
-                newly_done,
-                torch.where(converged, STATUS_SOLVED, STATUS_PRIMAL_INFEASIBLE),
-                torch.where(
-                    ~done & near,
-                    STATUS_SOLVED_INACCURATE,
-                    torch.where(~done, STATUS_MAX_ITER, status),
-                ),
-            ).to(torch.int32)
-            its = torch.where(newly_done, it, its).to(torch.int32)
-            done = done | newly_done
-            r_p = torch.where(done & ~newly_done, r_p, r_pn)
-            r_d = torch.where(done & ~newly_done, r_d, r_dn)
-            x, z, y = xn, zn, yn
+        x, z, y, _, _, r_p, r_d, status, its = device_while(cond, body, carry)
 
     return QPSolution(
         x=x * d,

@@ -42,8 +42,8 @@ span):
 | segmenter (``perception/segmentation.py``, ``models/segformer.py``) | counter ``segmenter.forward:<architecture>`` (a frame, at ``perceive`` and ``segment_drivable_area``); SegFormer's ``segformer.stage1`` .. ``segformer.stage4`` (d), ``segformer.decode`` (d), ``segformer.attention`` (d, a block each), inside ``perceiver.segment`` |
 | compiled graphs (``ops/graph_loop.py``) | ``graph.inputs``, ``graph.replay``, ``graph.outputs``; counters ``graph.capture:<name>``, ``graph.replay:<name>`` |
 | control step (``runtime/controller.py``, ``mpc/spatial_mpc.py``) | ``control.solve``; ``control.refit``, ``control.step``, ``control.publish``; ``mpc.shift`` (d), ``mpc.prepare`` (d), ``mpc.extract`` (d) |
-| QP engine (``qp/admm.py``, ``qp/batched.py``) | ``qp.factor`` (d), ``qp.iterate`` (d), ``qp.read_done`` |
-| sweep (``bench/lap_sweep.py``) | ``sweep.step``; ``sweep.window`` (d), ``sweep.integrate`` (d) |
+| QP engine (``qp/admm.py``, ``qp/batched.py``) | ``qp.factor`` (d), ``qp.iterate`` (d), ``qp.read_done`` (adaptive rho's host read of a chunk's flags) |
+| sweep (``bench/lap_sweep.py``) | ``sweep.step`` (around the step's graph); ``sweep.window`` (d), ``sweep.integrate`` (d) |
 | localisation (``localise/``) | ``nearest_point``, ``localiser.step``, ``localiser.observe`` |
 """
 

@@ -1259,12 +1259,14 @@ def phase_lap_sweep() -> dict:
 
     # the shipped raceline with its widths and speed profile
     rsweep, rgrid = raceline_sweep(mpc, tm, _sub_grid(grid, RACELINE_BATCH), dt)
+    rsweep.run_fused(rgrid, 1)  # untimed: the step's graph at this batch
     raceline, raceline_launches = _counted(lambda: run_laps(rsweep, rgrid, dt, RACELINE_STEPS))
     if raceline["total_solves"] != RACELINE_BATCH * RACELINE_STEPS:
         raise RuntimeError(f"raceline: {raceline['total_solves']} solves")
     _check_closed_loop("raceline", RACELINE_STEPS, raceline_launches, raceline["solve_success_rate"], 0.9)
 
     # the full-lap tool's loop at B = 32
+    sweep.run_fused(grid_of(LAP_BATCH), 1)  # untimed: the step's graph at this batch
     laps, lap_launches = _counted(lambda: run_laps(sweep, grid_of(LAP_BATCH), dt, LAP_STEPS))
     if laps["sequential_solves_per_scenario"] != LAP_STEPS:
         raise RuntimeError(f"full lap: {laps['sequential_solves_per_scenario']} sequential solves")

@@ -79,9 +79,9 @@ def test_max_iter_reported():
     np.testing.assert_allclose(ours.x.numpy(), np.asarray(ref.x), rtol=1e-4, atol=1e-4)
 
 
-def test_primal_infeasibility_certificate():
-    rng = np.random.default_rng(3)
-    n = 12
+def _infeasible_qp(rng, n=12):
+    """A primal-infeasible QP: x0 == 0 and x0 == 5, then a box on every
+    variable (m = n + 2 rows); fp32 numpy arrays."""
     Mx = rng.normal(size=(n, n))
     P = (Mx @ Mx.T + np.eye(n)).astype(np.float32)
     q = rng.normal(size=n).astype(np.float32)
@@ -90,7 +90,11 @@ def test_primal_infeasibility_certificate():
     u = np.full(n + 2, 10.0, np.float32)
     l[0] = u[0] = 0.0
     l[1] = u[1] = 5.0  # x0 == 0 and x0 == 5
-    ours, ref = _solve_both(tuple(jnp.asarray(v) for v in (P, q, A, l, u)))
+    return P, q, A, l, u
+
+
+def test_primal_infeasibility_certificate():
+    ours, ref = _solve_both(tuple(jnp.asarray(v) for v in _infeasible_qp(np.random.default_rng(3))))
     assert int(ours.status) == int(ref.status) == 2
     assert int(ours.iterations) < 1000
     assert abs(int(ours.iterations) - int(ref.iterations)) <= 25
@@ -110,6 +114,43 @@ def _batch(seeds, n=20, m=30):
     qps = [_random_qp(np.random.default_rng(s), n, m, eq_rows=4) for s in seeds]
     stacked = [np.stack([np.asarray(qp[i]) for qp in qps]) for i in range(5)]
     return qps, stacked
+
+
+def _straggler_batch(n=12):
+    """Three lanes that leave the batched chunk loop at different trips:
+    a cold start that takes many chunks (1,675 iterations), a lane
+    warm-started at its own solution (one chunk) and a primal-infeasible
+    one (certified after two). Returns (qps, stacked, x0, y0), the warm
+    starts zero but for the second lane."""
+    qps = [_np(*_random_qp(np.random.default_rng(s), n, n + 2, eq_rows=2)) for s in (11, 12)]
+    qps.append(_infeasible_qp(np.random.default_rng(3), n))
+    warm = jax.jit(lambda *a: jax_solve(*a, JConfig(**BATCH_KW)))(*qps[1])
+    x0 = np.zeros((3, n), np.float32)
+    y0 = np.zeros((3, n + 2), np.float32)
+    x0[1], y0[1] = np.asarray(warm.x), np.asarray(warm.y)
+    stacked = [np.stack([qp[i] for qp in qps]) for i in range(5)]
+    return qps, stacked, x0, y0
+
+
+@pytest.mark.parametrize("tile_skip", [False, True])
+def test_batched_straggler_loop_matches_jax(tile_skip):
+    """The batched chunk loop (ops/graph_loop.device_while, run eagerly)
+    on lanes that finish at different trips: each lane's status,
+    iteration count and iterates are those JAX's lax.while_loop gives
+    it, with or without the kernel skipping the lanes already done."""
+    _, stacked, x0, y0 = _straggler_batch()
+    jcfg = JConfig(**BATCH_KW)
+    tcfg = ADMMConfig(**BATCH_KW, tile_skip=tile_skip)
+    ref = jax.jit(lambda *a: jax_solve_batched(*a[:5], jcfg, *a[5:]))(*stacked, x0, y0)
+    ours = solve_box_qp_batched(
+        *qp_from_numpy(*stacked, device="cpu"), tcfg, torch.as_tensor(x0), torch.as_tensor(y0)
+    )
+    np.testing.assert_array_equal(ours.status.numpy(), np.asarray(ref.status))
+    np.testing.assert_array_equal(ours.status.numpy(), [1, 1, 2])
+    np.testing.assert_array_equal(ours.iterations.numpy(), np.asarray(ref.iterations))
+    its = ours.iterations.numpy()
+    assert its[1] == tcfg.check_every and its[2] < its[0]
+    np.testing.assert_allclose(ours.x.numpy(), np.asarray(ref.x), **X_TOL)
 
 
 def test_batched_matches_jax_and_tile_skip_is_exact():
@@ -150,14 +191,22 @@ def test_batched_refuses_adaptive_rho():
         solve_box_qp_batched(*qp_from_numpy(*stacked, device="cpu"), ADMMConfig())
 
 
-def test_batched_member_equals_single_solve():
+@pytest.mark.parametrize("case", ["random", "straggler"])
+def test_batched_member_equals_single_solve(case):
     # fixed rho on both: the batched engine and the single-scenario
     # engine run the same iterations on each scenario
-    qps, stacked = _batch(range(3))
+    if case == "random":
+        qps, stacked = _batch(range(3))
+        warm = [(None, None)] * len(qps)
+        x0 = y0 = None
+    else:
+        qps, stacked, x0, y0 = _straggler_batch()
+        x0, y0 = torch.as_tensor(x0), torch.as_tensor(y0)
+        warm = list(zip(x0, y0))
     tcfg = ADMMConfig(**BATCH_KW)
-    batched = solve_box_qp_batched(*qp_from_numpy(*stacked, device="cpu"), tcfg)
+    batched = solve_box_qp_batched(*qp_from_numpy(*stacked, device="cpu"), tcfg, x0, y0)
     for i, qp in enumerate(qps):
-        single = solve_box_qp(*qp_from_numpy(*_np(*qp), device="cpu"), tcfg)
+        single = solve_box_qp(*qp_from_numpy(*_np(*qp), device="cpu"), tcfg, *warm[i])
         assert int(single.status) == int(batched.status[i])
         assert int(single.iterations) == int(batched.iterations[i])
         torch.testing.assert_close(single.x, batched.x[i], rtol=1e-4, atol=1e-4)

@@ -562,6 +562,8 @@ def test_lap_sweep_on_card_matches_cpu_step_by_step(cuda_device):
         return type(tree)(*(getattr(tree, f.name).cpu() for f in dataclasses.fields(tree)))
 
     cars, states, prev = gpu.start(grid)
+    gpu.fused_step(cars, states, grid.v_max, prev)  # captures the step's graph
+    settle_launches()
     admm_chunk.launches.clear()
     for step in range(10):
         c_cars, c_states, c_metrics, c_i0 = cpu.fused_step(
@@ -574,7 +576,102 @@ def test_lap_sweep_on_card_matches_cpu_step_by_step(cuda_device):
             states.projected_control.cpu(), c_states.projected_control, rtol=2e-3, atol=2e-3
         )
         torch.testing.assert_close(metrics["v"].cpu(), c_metrics["v"], rtol=2e-3, atol=2e-3)
+    settle_launches()
     assert dict(admm_chunk.launches) == {CLUSTER_BOX: 10}
+
+
+def _straggling_sweep(device):
+    """The racing controller (horizon 50, the chunk loop to ``max_iter``)
+    on monza at the sweep benchmark's half width, its tolerances tightened
+    to 2e-5 and its budget cut to 500 iterations, so that from zero warm
+    starts the lanes of a step leave the chunk loop at different trips."""
+    from acmpc_tpu_torch.bench.lap_sweep import LapSweep
+    from acmpc_tpu_torch.config import load_config
+    from acmpc_tpu_torch.dynamics import SpatialBicycleModel
+    from acmpc_tpu_torch.localise.track_map import load_track_map
+    from acmpc_tpu_torch.mpc.spatial_mpc import SpatialMPC
+
+    cfg = load_config(ROOT / "configs" / "monza.yaml")
+    control = cfg.racing_control
+    model = SpatialBicycleModel(cfg.vehicle, control.constraints.v_min, control.constraints.v_max)
+    mpc = SpatialMPC(control, model, device=device)
+    mpc.admm = dataclasses.replace(mpc.admm, eps_abs=2e-5, eps_rel=2e-5, max_iter=500)
+    return LapSweep(mpc, load_track_map(ROOT / "data" / "maps" / "monza.npz", device=device), half_width=5.0)
+
+
+def _flat_step(out):
+    cars, states, metrics, i0 = out
+    return (*dataclasses.astuple(cars), *dataclasses.astuple(states), *metrics.values(), i0), list(metrics)
+
+
+def _settled_chunks():
+    settle_launches()
+    n = sum(admm_chunk.launches.values())
+    admm_chunk.launches.clear()
+    return n
+
+
+@pytest.mark.cuda
+def test_fused_step_graph_equals_eager_on_card(cuda_device):
+    """``LapSweep.fused_step`` as one CUDA graph a batch (the chunk loop a
+    WHILE node) against the eager step on the card, bit for bit: three
+    steps from zero warm starts with carried states, at B = 256 and 32,
+    the graph's chunk launches (its loop trips, settled) equal to the
+    eager step's, one graph cached a batch."""
+    from acmpc_tpu_torch.bench.lap_sweep import SweepGrid
+
+    sweep = _straggling_sweep(cuda_device)
+    eager_step = sweep.mpc.batched_get_control_fused
+    for n_graphs, batch in enumerate((256, 32), start=1):
+        grid = SweepGrid.perturbed(
+            torch.Generator(device=cuda_device).manual_seed(batch), batch, sweep.map.n_centre, 24.0
+        )
+        start = sweep.start(grid)
+        sweep.fused_step(*start[:2], grid.v_max, start[2])  # the capture
+        assert len(sweep._fused_graphs.graphs) == n_graphs
+        _settled_chunks()
+        eager = graph = start
+        for step in range(3):
+            eager = sweep._step(eager[0], eager[1], grid.v_max, eager[-1], eager_step)
+            eager_chunks = _settled_chunks()
+            graph = sweep.fused_step(graph[0], graph[1], grid.v_max, graph[-1])
+            assert _settled_chunks() == eager_chunks, (batch, step)
+            got, got_keys = _flat_step(graph)
+            want, want_keys = _flat_step(eager)
+            assert got_keys == want_keys
+            for i, (a, b) in enumerate(zip(got, want)):
+                assert a.dtype == b.dtype and torch.equal(a, b), (batch, step, i)
+            its = eager[2]["control_iterations"]
+            if step == 0:
+                # several trips, lanes done at different ones
+                assert int(its.max()) > 2 * sweep.mpc.admm.check_every, batch
+                assert len(torch.unique(its)) > 2, batch
+        assert len(sweep._fused_graphs.graphs) == n_graphs
+
+
+@pytest.mark.cuda
+def test_fused_step_replays_once_a_step_with_the_monitor_on(cuda_device, monitor_on):
+    """With the monitor on, the step's graph (captured with it on) counts
+    one replay a step and no capture after its first call, and hands out
+    what the graph captured with the monitor off does."""
+    from acmpc_tpu_torch.bench.lap_sweep import SweepGrid
+
+    sweep = _straggling_sweep(cuda_device)
+    grid = SweepGrid.perturbed(torch.Generator(device=cuda_device).manual_seed(32), 32, sweep.map.n_centre, 24.0)
+    cars, states, prev = start = sweep.start(grid)
+    on = sweep.fused_step(cars, states, grid.v_max, prev)
+    monitor_on.clear()
+    for _ in range(3):
+        on = sweep.fused_step(on[0], on[1], grid.v_max, on[-1])
+    counters = monitor_on.take()["counters"]
+    assert counters == {"graph.replay:LapSweep.fused_step": 3}
+    monitor_on.disable()
+    off = sweep.fused_step(*start[:2], grid.v_max, start[2])
+    for _ in range(3):
+        off = sweep.fused_step(off[0], off[1], grid.v_max, off[-1])
+    assert len(sweep._fused_graphs.graphs) == 2
+    for a, b in zip(_flat_step(on)[0], _flat_step(off)[0]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

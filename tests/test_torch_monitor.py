@@ -275,13 +275,12 @@ def test_fused_step_spans(recording):
         "mpc.prepare": {"sweep.step"},
         "qp.factor": {"sweep.step"},
         "qp.iterate": {"sweep.step"},
-        "qp.read_done": {"qp.iterate"},
         "mpc.extract": {"sweep.step"},
         "sweep.integrate": {"sweep.step"},
     }
-    # one read of the done flags a chunk, and one that ends the loop
-    reads = sum(1 for s in out["spans"] if s[0] == "qp.read_done")
-    assert reads >= 2
+    # each span once a step: the chunk loop (ops/graph_loop.device_while,
+    # a WHILE node under a capture) opens none of its own
+    assert sorted(s[0] for s in out["spans"]) == sorted(parents)
 
 
 def test_locbench_profile_reads_the_filter_spans():
