@@ -155,7 +155,6 @@ def _clear_launches() -> None:
     graph_loop.settle_launches()
     chunk_ops.admm_chunk.launches.clear()
     chain_ops.chain_edges.launches.clear()
-    chain_ops.chain_scan.launches.clear()
     graph_loop.device_while.launches.clear()
     jpeg_ops.jpeg_round_trip.launches.clear()
 

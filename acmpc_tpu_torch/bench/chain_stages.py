@@ -84,7 +84,7 @@ def bands_walked(mask: torch.Tensor, bonnet_row: int, band: int, gap_tolerance: 
     """Band steps the kernel's chain takes: from the band holding the last
     usable row down to band 0, or to the band where the chain dies."""
     _, rows, gap = chain.scan_rows(mask, bonnet_row, gap_tolerance, band)
-    has = chain.chain_scan_reference(rows, gap).any(dim=1).tolist()
+    has = chain.chain_scan(rows, gap).any(dim=1).tolist()
     top = -(-min(bonnet_row, mask.shape[0]) // band) - 1
     started, miss, walked = False, 0, 0
     for k in range(top, -1, -1):

@@ -9,11 +9,11 @@ variant at n_iters in {0, 25, 50} and prints one JSON line with, per
 (shape, B, variant): ms at each count, ``us_per_iter`` (the slope from 25
 to 50 iterations) and ``fixed_ms`` (the chunk at 0 iterations: launch,
 the operator load of the cluster kernel, and the copies in and out).
-Horizon 50 (n = 248, m = 398): the cluster kernel at C in {5, 6, 8, 16}
-and the streaming kernel, B in {1, 7, 256}; horizon 100 (n = 498,
-m = 798): the split kernel at every C from 8 to 16 with the default ring
-(4 stages of 8 KB), other rings at C = 16 (``split_C16_S{stages}_{bytes}``),
-and the streaming kernel, B in {1, 8}. Each split row also gives its
+Horizon 50 (n = 248, m = 398): the cluster kernel at C in {5, 6, 8, 16},
+B in {1, 7, 256}; horizon 100 (n = 498, m = 798): the split kernel at
+every C from 8 to 16 with the default ring (4 stages of 8 KB), other
+rings at C = 16 (``split_C16_S{stages}_{bytes}``), B in {1, 8}. Each
+split row also gives its
 resident rows, the bytes each CTA streams per iteration and how many of
 its clusters the card holds at once. Then the box block (``box_*`` rows,
 on the main path's QPs: chip_smoke.py's ``box_qps`` and
@@ -58,7 +58,6 @@ def main() -> int:
             out = {f"split_C{C}": ops.split_plan(n, m, C) for C in range(8, 17)}
             for stages, size in RINGS:
                 out[f"split_C16_S{stages}_{size}"] = ops.split_plan(n, m, 16, stages, size)
-        out["stream"] = ops.ChunkPlan("stream", 1, ops.stream_smem_bytes(n, m))
         return out
 
     def split_facts(n, m, plan):

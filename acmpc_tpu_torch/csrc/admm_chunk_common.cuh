@@ -1,6 +1,5 @@
-// Pieces shared by the three ADMM chunk kernels (admm_chunk.cu, the
-// cluster kernel; admm_chunk_split.cu, the split kernel; and
-// admm_chunk_stream.cu, the streaming kernel).
+// Pieces shared by the two ADMM chunk kernels (admm_chunk.cu, the
+// cluster kernel; admm_chunk_split.cu, the split kernel).
 
 #pragma once
 

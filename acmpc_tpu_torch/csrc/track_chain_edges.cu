@@ -18,8 +18,8 @@
 // (0.94 MB at 1280x736) and 17 bytes of edges a row written, 0.28 us at
 // 3.35 TB/s. The chain is not: each band depends on the one below, so
 // the ~150 usable bands at band 4 (600 rows at band 1) are that many
-// dependent steps, and the time is their latency. The kernel this one
-// follows (csrc/track_chain.cu) paid three block barriers and a
+// dependent steps, and the time is their latency. A one-CTA scan of the
+// band rows alone, a column a thread, paid three block barriers and a
 // per-column loop a row, about 1.27 us; the PyTorch ops around it cost
 // ~20 more launches a frame.
 //

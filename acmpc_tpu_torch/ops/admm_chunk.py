@@ -33,8 +33,8 @@ of variable i), and per iteration
 with the relax, clip and dual update above. Without ``g`` the operator
 is the dense one, as the TPU kernel takes it.
 
-Three CUDA kernels compute it; :func:`plan_chunk` picks one of the first
-two from (n, m, B) before launch:
+Two CUDA kernels compute it; :func:`plan_chunk` picks one from (n, m, B)
+before launch:
 
 * ``cluster`` (``csrc/admm_chunk.cu``): one thread-block cluster of C
   CTAs per scenario, the operator held in the cluster's shared memory for
@@ -44,11 +44,7 @@ two from (n, m, B) before launch:
   holds whole (dense: horizons above 92; with the box block: the raceline
   at 1,953 points): a cluster of C CTAs per scenario keeps as many rows
   as fit in shared memory and streams the rest from L2 every iteration
-  through a ring of shared-memory stages;
-* ``stream`` (``csrc/admm_chunk_stream.cu``): one block per scenario, W
-  and A read from global memory every iteration. No plan picks it; it is
-  kept as the figure the split kernel is measured against, and takes no
-  box block.
+  through a ring of shared-memory stages.
 
 CPU tensors go to :func:`admm_chunk_reference` (with the box block
 :func:`admm_chunk_box_reference`); CUDA tensors go to the planned kernel,
@@ -72,20 +68,17 @@ CLUSTER = "admm_chunk_cluster"
 CLUSTER_ACTIVE = "admm_chunk_cluster[active]"
 SPLIT = "admm_chunk_split"
 SPLIT_ACTIVE = "admm_chunk_split[active]"
-STREAM = "admm_chunk_stream"
-STREAM_ACTIVE = "admm_chunk_stream[active]"
 CLUSTER_BOX = "admm_chunk_cluster[box]"
 CLUSTER_BOX_ACTIVE = "admm_chunk_cluster[box,active]"
 SPLIT_BOX = "admm_chunk_split[box]"
 SPLIT_BOX_ACTIVE = "admm_chunk_split[box,active]"
 KERNEL_NAMES = (
-    CLUSTER, CLUSTER_ACTIVE, SPLIT, SPLIT_ACTIVE, STREAM, STREAM_ACTIVE,
+    CLUSTER, CLUSTER_ACTIVE, SPLIT, SPLIT_ACTIVE,
     CLUSTER_BOX, CLUSTER_BOX_ACTIVE, SPLIT_BOX, SPLIT_BOX_ACTIVE,
 )
 SOURCES = {
     "cluster": "admm_chunk.cu",
     "split": "admm_chunk_split.cu",
-    "stream": "admm_chunk_stream.cu",
 }
 
 # H100: shared memory one block may use, and the largest cluster (above
@@ -277,16 +270,10 @@ def split_smem_bytes(
     return split_layout(n, m, C, stages, stage_bytes, n_b).bytes
 
 
-def stream_smem_bytes(n: int, m: int) -> int:
-    """Dynamic shared memory of one block of the streaming kernel: the
-    vectors x, w, xt, c0, z, y, rho, 1/rho, l, u."""
-    return 4 * (3 * n + 7 * m)
-
-
 @dataclasses.dataclass(frozen=True)
 class ChunkPlan:
-    variant: str  # "cluster", "split" or "stream"
-    cluster: int  # CTAs per scenario; 1 for "stream"
+    variant: str  # "cluster" or "split"
+    cluster: int  # CTAs per scenario
     smem_bytes: int  # dynamic shared memory per CTA
     stages: int = 0  # "split": ring stages
     stage_bytes: int = 0  # "split": bytes of one stage
@@ -353,12 +340,11 @@ def plan_chunk(n: int, m: int, B: int, n_b: int = 0) -> ChunkPlan:
 
 
 _PTR = ctypes.c_void_p
-# pointers (the cluster and split kernels take g after c0), the ints
-# after them, the floats (alpha, 1 - alpha[, sigma])
+# pointers (g after c0), the ints after them, the floats (alpha,
+# 1 - alpha, sigma)
 _LAUNCH_ARGS = {
     "cluster": (14, 5, 3),  # B, n, m, C, n_iters
     "split": (14, 7, 3),  # B, n, m, C, stages, stage_bytes, n_iters
-    "stream": (13, 4, 2),  # B, n, m, n_iters
 }
 
 
@@ -476,7 +462,7 @@ def _launch(
     where the card cannot schedule the cluster or refuses the launch."""
     B, n = x.shape
     m = z.shape[1]
-    if plan.box != (g is not None) or (g is not None and plan.variant == "stream"):
+    if plan.box != (g is not None):
         raise ValueError(
             f"a {kernel_name(plan, False)} plan does not take a "
             f"{'box-block' if g is not None else 'dense'} operator"
@@ -488,25 +474,20 @@ def _launch(
         return x_out, z_out, y_out
     index = W.device.index
     lib = _libraries(index)[plan.variant]
-    if plan.variant != "stream" and max_active_clusters(plan, n, m, index) == 0:
+    if max_active_clusters(plan, n, m, index) == 0:
         raise RuntimeError(
             f"the card cannot schedule a cluster of {plan.cluster} CTAs with "
             f"{plan.smem_bytes} bytes of shared memory each"
         )
-    if plan.variant == "stream":
-        shape, g_ptr, tail = (B, n, m), (), ()
-    else:
-        shape = (B, n, m, *_layout_args(plan))
-        g_ptr = (None if g is None else g.data_ptr(),)
-        tail = (float(sigma or 0.0),)
     with torch.cuda.device(index):
         stream = torch.cuda.current_stream(index).cuda_stream
         err = getattr(lib, f"admm_chunk_{plan.variant}_launch")(
-            W.data_ptr(), A.data_ptr(), c0.data_ptr(), *g_ptr, rho.data_ptr(),
-            l.data_ptr(), u.data_ptr(), x.data_ptr(), z.data_ptr(),
+            W.data_ptr(), A.data_ptr(), c0.data_ptr(), None if g is None else g.data_ptr(),
+            rho.data_ptr(), l.data_ptr(), u.data_ptr(), x.data_ptr(), z.data_ptr(),
             y.data_ptr(), None if active is None else active.data_ptr(),
             x_out.data_ptr(), z_out.data_ptr(), y_out.data_ptr(),
-            *shape, int(n_iters), float(alpha), float(1.0 - alpha), *tail, stream,
+            B, n, m, *_layout_args(plan), int(n_iters), float(alpha), float(1.0 - alpha),
+            float(sigma or 0.0), stream,
         )
     name = kernel_name(plan, active is not None)
     if err != 0:

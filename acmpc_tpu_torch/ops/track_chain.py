@@ -1,21 +1,15 @@
-"""Connected-run chain scan: the CUDA kernel, its plain version and the
-wrapper that picks between them.
+"""Connected-run chain scan and the fused track-limit extraction: the
+CUDA kernel, the plain versions and the wrapper that picks between them.
 
-Replaces ``acmpc_tpu/perception/tracks.py::_chain_scan`` (an XLA
-``lax.scan``, not Pallas). Over (N, W) boolean rows, bottom-up: seed on
-the drivable runs that touch the central third ``[W//3, 2W//3)`` of the
+``chain_scan`` is ``acmpc_tpu/perception/tracks.py::_chain_scan`` (an
+XLA ``lax.scan``, not Pallas) as a loop of PyTorch ops (about 20
+launches a row). Over (N, W) boolean rows, bottom-up: seed on the
+drivable runs that touch the central third ``[W//3, 2W//3)`` of the
 lowest non-empty row, then keep, each row up, the runs that overlap the
 previous selection (a seed spreads to its whole run; run ids are the
 cumulative count of empty pixels); once started, more than
 ``gap_tolerance`` consecutive rows with no selection end the chain; an
 empty row keeps the previous selection as the next row's seed.
-
-``rows`` is one frame's (N, W), bool or uint8 (nonzero is drivable),
-contiguous; the result is bool of the same shape. CPU tensors go to
-:func:`chain_scan_reference`, the same recurrence as a loop of PyTorch
-ops (about 20 launches a row); CUDA tensors go to
-``csrc/track_chain.cu``, one launch of one CTA for the whole chain, and
-a refused launch raises.
 
 The frame's whole extraction, ``chain_edges``, is one launch of
 ``csrc/track_chain_edges.cu``: from the (H, W) drivable mask to each
@@ -23,9 +17,7 @@ row's leftmost and rightmost selected column (the banding, the chain,
 the AND with the full-resolution rows, the fallback to the raw mask and
 the row edges of ``acmpc_tpu/perception/tracks.py:62-173``). Its plain
 version, :func:`chain_edges_reference`, is the composite of PyTorch ops
-around :func:`chain_scan_reference`; ``chain_scan`` in its place gives
-the same composite around the one-CTA scan kernel, which no path runs
-any more and which is timed beside the fused kernel.
+around :func:`chain_scan`.
 """
 
 from __future__ import annotations
@@ -39,12 +31,6 @@ import torch
 from acmpc_tpu_torch.ops.cuda_build import build_library
 from acmpc_tpu_torch.ops.graph_loop import count_launch
 
-TRACK_CHAIN_SCAN = "track_chain_scan"
-SOURCE = "track_chain.cu"
-# the kernel's block and the columns one thread holds (csrc/track_chain.cu)
-THREADS = 256
-MAX_WIDTH = 32 * THREADS
-
 TRACK_CHAIN_EDGES = "track_chain_edges"
 EDGES_SOURCE = "track_chain_edges.cu"
 # csrc/track_chain_edges.cu: up to four 64-bit words of a row a lane of
@@ -54,9 +40,17 @@ EDGES_MAX_WIDTH = 64 * 32 * 4
 EDGES_MAX_SMEM = 232448 - 1024
 
 
-def chain_scan_reference(rows: torch.Tensor, gap_tolerance: int) -> torch.Tensor:
-    """Plain PyTorch version: the recurrence of ``_chain_scan`` over the
-    (N, W) rows, one row per loop step."""
+def chain_scan(rows: torch.Tensor, gap_tolerance: int) -> torch.Tensor:
+    """The bottom-up connected-run chain of ``rows``, one frame's (N, W),
+    bool or uint8 (nonzero is drivable), contiguous, on any device; bool
+    of the same shape. The recurrence of ``_chain_scan``, one row per
+    loop step (see the module docstring)."""
+    if rows.dim() != 2:
+        raise ValueError(f"rows must be one frame's (N, W), got {tuple(rows.shape)}")
+    if rows.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"rows must be bool or uint8, got {rows.dtype}")
+    if not rows.is_contiguous():
+        raise ValueError("rows must be contiguous")
     rows = rows != 0
     n, w = rows.shape
     device = rows.device
@@ -85,65 +79,6 @@ def chain_scan_reference(rows: torch.Tensor, gap_tolerance: int) -> torch.Tensor
         started = started_n
         out[r] = sel
     return out
-
-
-@functools.lru_cache(maxsize=None)
-def _library(device_index: int) -> ctypes.CDLL:
-    lib = build_library(SOURCE, torch.device("cuda", device_index))
-    lib.track_chain_scan_launch.argtypes = [
-        ctypes.c_void_p,  # rows
-        ctypes.c_void_p,  # out
-        ctypes.c_int,  # N
-        ctypes.c_int,  # W
-        ctypes.c_int,  # gap
-        ctypes.c_void_p,  # stream
-    ]
-    lib.track_chain_scan_launch.restype = ctypes.c_int
-    return lib
-
-
-def _check(rows: torch.Tensor):
-    if rows.dim() != 2:
-        raise ValueError(f"rows must be one frame's (N, W), got {tuple(rows.shape)}")
-    if rows.dtype not in (torch.bool, torch.uint8):
-        raise TypeError(f"rows must be bool or uint8, got {rows.dtype}")
-    if not rows.is_contiguous():
-        raise ValueError("rows must be contiguous")
-    if rows.shape[-1] > MAX_WIDTH:
-        raise ValueError(f"rows wider than {MAX_WIDTH} columns: {rows.shape[-1]}")
-
-
-def _launch(rows: torch.Tensor, gap_tolerance: int) -> torch.Tensor:
-    """Launch the kernel on a CUDA tensor and count it in
-    ``chain_scan.launches``; anything else raises."""
-    _check(rows)
-    if rows.device.type != "cuda":
-        raise ValueError(f"the chain-scan kernel takes a CUDA tensor, not one on {rows.device}")
-    out = torch.empty(rows.shape, dtype=torch.bool, device=rows.device)
-    n, w = rows.shape
-    index = rows.device.index
-    lib = _library(index)
-    with torch.cuda.device(index):
-        stream = torch.cuda.current_stream(index).cuda_stream
-        err = lib.track_chain_scan_launch(
-            rows.data_ptr(), out.data_ptr(), n, w, int(gap_tolerance), stream
-        )
-    if err != 0:
-        raise RuntimeError(f"track_chain_scan kernel launch failed: CUDA error {err}")
-    chain_scan.launches[TRACK_CHAIN_SCAN] += 1
-    return out
-
-
-def chain_scan(rows: torch.Tensor, gap_tolerance: int) -> torch.Tensor:
-    """The bottom-up connected-run chain of ``rows``; see the module
-    docstring. ``chain_scan.launches`` counts kernel launches."""
-    if rows.device.type == "cpu":
-        _check(rows)
-        return chain_scan_reference(rows, gap_tolerance)
-    return _launch(rows, gap_tolerance)
-
-
-chain_scan.launches = collections.Counter()
 
 
 # -- the fused extraction: banding, chain, AND, fallback and row edges --
@@ -188,15 +123,14 @@ def chain_edges_reference(
     gap_tolerance: int = 3,
     band: int = 1,
     return_mask: bool = False,
-    scan=chain_scan_reference,
 ):
-    """Plain PyTorch version of :func:`chain_edges`: ``scan_rows``, the
-    chain ``scan`` over the band rows, each band's selection repeated over
-    its rows and ANDed with the usable mask, the raw mask if nothing was
-    selected, then ``row_edge_columns``."""
+    """Plain PyTorch version of :func:`chain_edges`: ``scan_rows``,
+    :func:`chain_scan` over the band rows, each band's selection repeated
+    over its rows and ANDed with the usable mask, the raw mask if nothing
+    was selected, then ``row_edge_columns``."""
     H = mask.shape[0]
     usable, rows, gap = scan_rows(mask, bonnet_row, gap_tolerance, band)
-    sel = scan(rows, gap)
+    sel = chain_scan(rows, gap)
     if band > 1:
         sel = sel.repeat_interleave(band, dim=0)[:H]
     sel = sel & usable

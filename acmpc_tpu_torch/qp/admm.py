@@ -198,9 +198,12 @@ def _box_block(As, box: bool):
 
 
 def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Batched matrix-vector product (B, r, c) x (B, c) -> (B, r). On the
-    CPU one product per lane, as :func:`_solve_one` computes it (see
+    """Matrix-vector product of one QP, (r, c) x (c,) -> (r,), or of B
+    lanes, (B, r, c) x (B, c) -> (B, r). On the CPU lanes take one
+    product each, as one QP computes it (see
     ``ops.admm_chunk._products``)."""
+    if v.dim() == 1:
+        return M @ v
     if M.device.type == "cpu" and len(M):
         return torch.stack([m @ w for m, w in zip(M, v)])
     return (M @ v[..., None])[..., 0]
@@ -218,49 +221,107 @@ def _lanewise(fn, *lanes):
     return torch.stack(outs)
 
 
-def _lane_residuals(cfg, Ps, As, qs, c, d, e, x, y, z):
-    """Unscaled residuals, convergence flags and the adaptive-rho ratio of
-    B lanes (c (B,), the other vectors (B, .)), each reduced over its own
-    lane only. Returns (r_prim, r_dual, converged, near, ratio), (B,)
-    each."""
-    Ax_u = _mv(As, x) / e
-    z_u = z / e
-    r_prim = _inf_norm(Ax_u - z_u)
-    Px_u = (_mv(Ps, x) / d) / c[:, None]
-    Aty_u = (_mv(As.transpose(-1, -2), y) / d) / c[:, None]
-    q_u = (qs / d) / c[:, None]
-    r_dual = _inf_norm(Px_u + Aty_u + q_u)
-    prim_scale = torch.maximum(_inf_norm(Ax_u), _inf_norm(z_u))
-    dual_scale = torch.maximum(
-        torch.maximum(_inf_norm(Px_u), _inf_norm(Aty_u)), _inf_norm(q_u)
-    )
-    eps_prim = cfg.eps_abs + cfg.eps_rel * prim_scale
-    eps_dual = cfg.eps_abs + cfg.eps_rel * dual_scale
-    # divergence guard (see solve_box_qp's residuals)
-    sane = torch.isfinite(r_prim) & torch.isfinite(r_dual) & (_inf_norm(x) < 1e12)
-    converged = (r_prim <= eps_prim) & (r_dual <= eps_dual) & sane
-    near = (
-        (r_prim <= cfg.inaccurate_factor * eps_prim)
-        & (r_dual <= cfg.inaccurate_factor * eps_dual)
-        & sane
-    )
-    prim_n = r_prim / torch.clamp(prim_scale, min=1e-10)
-    dual_n = r_dual / torch.clamp(dual_scale, min=1e-10)
-    ratio = torch.sqrt(prim_n / torch.clamp(dual_n, min=1e-10))
-    return r_prim, r_dual, converged, near, ratio
+@dataclasses.dataclass(frozen=True, eq=False)
+class _Scaled:
+    """One QP after Ruiz scaling (q_s (n,)), or B of them along a leading
+    lane axis (q_s (B, n)): P_s = c D P D, q_s = c D q, A_s = E A D, the
+    bounds l_s = E l and u_s = E u, and the operator the chunks take
+    (:func:`_chunk_operator`: A_chunk, A_d, g). Built by
+    :func:`_scaled_problem`; every solver's chunks, residual checks,
+    infeasibility certificates and unscaling go through it. Each lane is
+    reduced over its own axis only."""
 
+    cfg: ADMMConfig
+    Ps: torch.Tensor
+    qs: torch.Tensor
+    As: torch.Tensor
+    ls: torch.Tensor
+    us: torch.Tensor
+    c: torch.Tensor
+    d: torch.Tensor
+    e: torch.Tensor
+    A_chunk: torch.Tensor
+    A_d: torch.Tensor | None
+    g: torch.Tensor | None
 
-def _lane_certificate(cfg, As, ls, us, c, d, e, dy):
-    """OSQP's primal infeasibility test on each lane's dual-ascent
-    direction ``dy`` (B, m), in unscaled quantities; (B,) bool."""
-    dy_u_norm = _inf_norm(e * dy) / c
-    at_dy = _inf_norm(_mv(As.transpose(-1, -2), dy) / d) / c
-    support = (
-        torch.sum(us * torch.clamp(dy, min=0.0), dim=-1)
-        + torch.sum(ls * torch.clamp(dy, max=0.0), dim=-1)
-    ) / c
-    eps = cfg.eps_prim_inf * torch.clamp(dy_u_norm, min=1e-30)
-    return (dy_u_norm > 1e-12) & (at_dy <= eps) & (support <= -eps)
+    def full(self, value, dtype) -> torch.Tensor:
+        """``value`` for each lane (0-d for one QP), filled on the device:
+        a copy from host memory cannot be captured."""
+        return torch.full(self.qs.shape[:-1], value, dtype=dtype, device=self.qs.device)
+
+    def chunk(self, W, c0, rho_vec, x, z, y, n_iters, active=None):
+        """``n_iters`` ADMM iterations on the operator (W, c0) at
+        ``rho_vec``: one ``admm_chunk`` call over every lane, with the box
+        block's g and sigma where A has one. One QP goes as a batch of
+        one."""
+        one = self.qs.dim() == 1
+        tensors = (W, self.A_chunk, c0, rho_vec, self.ls, self.us, x, z, y, self.g)
+        if one:
+            tensors = tuple(None if t is None else t[None] for t in tensors)
+        *args, g = tensors
+        out = admm_chunk(
+            *args, n_iters=n_iters, alpha=self.cfg.alpha, active=active,
+            g=g, sigma=None if g is None else self.cfg.sigma,
+        )
+        return tuple(t[0] for t in out) if one else out
+
+    def residuals(self, x, y, z):
+        """Unscaled residuals, convergence flags and the adaptive-rho
+        ratio of each lane: (r_prim, r_dual, converged, near, ratio)."""
+        cfg, d, e, c = self.cfg, self.d, self.e, self.c[..., None]
+        Ax_u = _mv(self.As, x) / e
+        z_u = z / e
+        r_prim = _inf_norm(Ax_u - z_u)
+        Px_u = (_mv(self.Ps, x) / d) / c
+        Aty_u = (_mv(self.As.transpose(-1, -2), y) / d) / c
+        q_u = (self.qs / d) / c
+        r_dual = _inf_norm(Px_u + Aty_u + q_u)
+        prim_scale = torch.maximum(_inf_norm(Ax_u), _inf_norm(z_u))
+        dual_scale = torch.maximum(
+            torch.maximum(_inf_norm(Px_u), _inf_norm(Aty_u)), _inf_norm(q_u)
+        )
+        eps_prim = cfg.eps_abs + cfg.eps_rel * prim_scale
+        eps_dual = cfg.eps_abs + cfg.eps_rel * dual_scale
+        # divergence guard: a blown-up fp32 iterate inflates its own
+        # relative tolerance or goes NaN; a sane iterate after Ruiz
+        # scaling is O(1)
+        sane = torch.isfinite(r_prim) & torch.isfinite(r_dual) & (_inf_norm(x) < 1e12)
+        converged = (r_prim <= eps_prim) & (r_dual <= eps_dual) & sane
+        near = (
+            (r_prim <= cfg.inaccurate_factor * eps_prim)
+            & (r_dual <= cfg.inaccurate_factor * eps_dual)
+            & sane
+        )
+        prim_n = r_prim / torch.clamp(prim_scale, min=1e-10)
+        dual_n = r_dual / torch.clamp(dual_scale, min=1e-10)
+        ratio = torch.sqrt(prim_n / torch.clamp(dual_n, min=1e-10))
+        return r_prim, r_dual, converged, near, ratio
+
+    def certificate(self, dy):
+        """OSQP's primal infeasibility test on each lane's dual-ascent
+        direction ``dy`` (Stellato et al. sec. 3.4), in unscaled
+        quantities: bool, one per lane."""
+        c = self.c
+        dy_u_norm = _inf_norm(self.e * dy) / c
+        at_dy = _inf_norm(_mv(self.As.transpose(-1, -2), dy) / self.d) / c
+        support = (
+            torch.sum(self.us * torch.clamp(dy, min=0.0), dim=-1)
+            + torch.sum(self.ls * torch.clamp(dy, max=0.0), dim=-1)
+        ) / c
+        eps = self.cfg.eps_prim_inf * torch.clamp(dy_u_norm, min=1e-30)
+        return (dy_u_norm > 1e-12) & (at_dy <= eps) & (support <= -eps)
+
+    def solution(self, x, y, z, status, iterations, r_prim, r_dual) -> QPSolution:
+        """The unscaled solution of the scaled iterates (x, y, z)."""
+        return QPSolution(
+            x=x * self.d,
+            y=y * self.e / self.c[..., None],
+            z=z / self.e,
+            status=status,
+            iterations=iterations,
+            r_prim=r_prim,
+            r_dual=r_dual,
+        )
 
 
 def _status(converged, near, prim_inf=None):
@@ -308,115 +369,59 @@ def _chunk_operator(As, box: bool):
     return block[0], *block
 
 
+def _scaled_problem(P, q, A, l, u, cfg, x0, y0, box):
+    """The scaled problem (:class:`_Scaled`) of one QP (q (n,)) or of B
+    lanes (q (B, n)), and its first iterates (x, y, z): zero, or the
+    warm start x0, y0 scaled, and z = A_s x clipped to the scaled bounds.
+    ``box``: see :func:`_solve_box_qp`."""
+    dtype, device = q.dtype, q.device
+    l = torch.clamp(l, -_INF, _INF)
+    u = torch.clamp(u, -_INF, _INF)
+
+    Ps, qs, As, c, d, e = _ruiz_equilibrate(P, q, A, cfg.scaling_iters)
+    ls = e * l
+    us = e * u
+    As = As.contiguous()
+    scaled = _Scaled(cfg, Ps, qs, As, ls, us, c, d, e, *_chunk_operator(As, box))
+
+    x = torch.zeros(q.shape, dtype=dtype, device=device) if x0 is None else x0 / d
+    y = torch.zeros(ls.shape, dtype=dtype, device=device) if y0 is None else c[..., None] * y0 / e
+    z = torch.clamp(_mv(As, x), ls, us)
+    return scaled, x, y, z
+
+
 def _solve_one(P, q, A, l, u, cfg, x0, y0, box=False) -> tuple[QPSolution, torch.Tensor]:
     """One QP; returns the solution and the rho it ends on. ``box``: see
     :func:`_solve_box_qp`."""
     dtype = q.dtype
-    n = q.shape[-1]
-    m = l.shape[-1]
     sigma = cfg.sigma
 
     def operator(rho):
-        rho_vec = _rho_vector(rho, ls, us)
-        return rho_vec, _build_operator(_factor(Ps, As, rho_vec, sigma), As, qs, sigma, A_d)
-
-    def full(value, dtype):
-        # filled on the device: a copy from host memory cannot be captured
-        return torch.full((), value, dtype=dtype, device=q.device)
+        rho_vec = _rho_vector(rho, sp.ls, sp.us)
+        K_inv = _factor(sp.Ps, sp.As, rho_vec, sigma)
+        return rho_vec, _build_operator(K_inv, sp.As, sp.qs, sigma, sp.A_d)
 
     # scaling, rho, K and its factorisation, the operator, the first iterates
     with MONITOR.device_span("qp.factor", q.device):
-        l = torch.clamp(l, -_INF, _INF)
-        u = torch.clamp(u, -_INF, _INF)
-
-        Ps, qs, As, c, d, e = _ruiz_equilibrate(P, q, A, cfg.scaling_iters)
-        ls = e * l
-        us = e * u
-        As = As.contiguous()
-        A_chunk, A_d, g = _chunk_operator(As, box)
-        box_kw = {} if g is None else {"g": g[None], "sigma": sigma}
-
-        x = torch.zeros(n, dtype=dtype, device=q.device) if x0 is None else x0 / d
-        y = torch.zeros(m, dtype=dtype, device=q.device) if y0 is None else c * y0 / e
-        z = torch.clamp(As @ x, ls, us)
-        rho = full(cfg.rho, dtype)
+        sp, x, y, z = _scaled_problem(P, q, A, l, u, cfg, x0, y0, box)
+        rho = sp.full(cfg.rho, dtype)
         rho_vec, op = operator(rho)
-
-    def residuals(x, y, z):
-        """Unscaled residuals, convergence flags and the adaptive-rho
-        ratio."""
-        Ax_u = (As @ x) / e
-        z_u = z / e
-        r_prim = _inf_norm(Ax_u - z_u)
-        Px_u = ((Ps @ x) / d) / c
-        Aty_u = ((As.T @ y) / d) / c
-        q_u = (qs / d) / c
-        r_dual = _inf_norm(Px_u + Aty_u + q_u)
-        prim_scale = torch.maximum(_inf_norm(Ax_u), _inf_norm(z_u))
-        dual_scale = torch.maximum(
-            torch.maximum(_inf_norm(Px_u), _inf_norm(Aty_u)), _inf_norm(q_u)
-        )
-        eps_prim = cfg.eps_abs + cfg.eps_rel * prim_scale
-        eps_dual = cfg.eps_abs + cfg.eps_rel * dual_scale
-        # divergence guard: a blown-up fp32 iterate inflates its own
-        # relative tolerance or goes NaN; a sane iterate after Ruiz
-        # scaling is O(1)
-        sane = (
-            torch.isfinite(r_prim) & torch.isfinite(r_dual) & (_inf_norm(x) < 1e12)
-        )
-        converged = (r_prim <= eps_prim) & (r_dual <= eps_dual) & sane
-        near = (
-            (r_prim <= cfg.inaccurate_factor * eps_prim)
-            & (r_dual <= cfg.inaccurate_factor * eps_dual)
-            & sane
-        )
-        prim_n = r_prim / torch.clamp(prim_scale, min=1e-10)
-        dual_n = r_dual / torch.clamp(dual_scale, min=1e-10)
-        ratio = torch.sqrt(prim_n / torch.clamp(dual_n, min=1e-10))
-        return r_prim, r_dual, converged, near, ratio
-
-    def chunk(x, z, y, rho_vec, op, n_iters):
-        W, c0 = op
-        xo, zo, yo = admm_chunk(
-            W[None], A_chunk[None], c0[None], rho_vec[None], ls[None], us[None],
-            x[None], z[None], y[None], n_iters=n_iters, alpha=cfg.alpha, **box_kw,
-        )
-        return xo[0], zo[0], yo[0]
 
     if cfg.fixed_iterations is not None:
         with MONITOR.device_span("qp.iterate", q.device):
-            x, z, y = chunk(x, z, y, rho_vec, op, cfg.fixed_iterations)
-            r_p, r_d, converged, near, _ = residuals(x, y, z)
-        return QPSolution(
-            x=x * d,
-            y=y * e / c,
-            z=z / e,
-            status=_status(converged, near),
-            iterations=full(cfg.fixed_iterations, torch.int32),
-            r_prim=r_p,
-            r_dual=r_d,
-        ), rho
-
-    def primal_infeasibility_certificate(dy):
-        """OSQP's test on a dual-ascent direction delta_y (Stellato et al.
-        sec. 3.4), in unscaled quantities."""
-        dy_u_norm = _inf_norm(e * dy) / c
-        at_dy = _inf_norm((As.T @ dy) / d) / c
-        support = (
-            torch.sum(us * torch.clamp(dy, min=0.0))
-            + torch.sum(ls * torch.clamp(dy, max=0.0))
-        ) / c
-        eps = cfg.eps_prim_inf * torch.clamp(dy_u_norm, min=1e-30)
-        return (dy_u_norm > 1e-12) & (at_dy <= eps) & (support <= -eps)
+            x, z, y = sp.chunk(*op, rho_vec, x, z, y, cfg.fixed_iterations)
+            r_p, r_d, converged, near, _ = sp.residuals(x, y, z)
+        iterations = sp.full(cfg.fixed_iterations, torch.int32)
+        return sp.solution(x, y, z, _status(converged, near), iterations, r_p, r_d), rho
 
     def check(x, z, y, rho_vec, op):
         """One chunk and its residual check: the new iterates, the
         residuals, the status, whether the solve is done (converged or
         certified infeasible) and the adaptive-rho ratio."""
         y_before = y
-        x, z, y = chunk(x, z, y, rho_vec, op, cfg.check_every)
-        r_p, r_d, converged, near, ratio = residuals(x, y, z)
-        prim_inf = primal_infeasibility_certificate(y - y_before) & ~converged
+        x, z, y = sp.chunk(*op, rho_vec, x, z, y, cfg.check_every)
+        r_p, r_d, converged, near, ratio = sp.residuals(x, y, z)
+        prim_inf = sp.certificate(y - y_before) & ~converged
         return x, z, y, r_p, r_d, _status(converged, near, prim_inf), converged | prim_inf, ratio
 
     if not cfg.adaptive_rho:
@@ -432,8 +437,8 @@ def _solve_one(P, q, A, l, u, cfg, x0, y0, box=False) -> tuple[QPSolution, torch
 
         inf = float("inf")
         carry = (
-            x, z, y, full(0, torch.int32), full(inf, dtype), full(inf, dtype),
-            full(STATUS_MAX_ITER, torch.int32), full(False, torch.bool),
+            x, z, y, sp.full(0, torch.int32), sp.full(inf, dtype), sp.full(inf, dtype),
+            sp.full(STATUS_MAX_ITER, torch.int32), sp.full(False, torch.bool),
         )
         with MONITOR.device_span("qp.iterate", q.device):
             x, z, y, iterations, r_p, r_d, status, _ = device_while(cond, body, carry)
@@ -441,8 +446,8 @@ def _solve_one(P, q, A, l, u, cfg, x0, y0, box=False) -> tuple[QPSolution, torch
         # adaptive rho refactors between chunks: the host reads the flags
         it = 0
         done = False
-        r_p = r_d = full(float("inf"), dtype)
-        status = full(STATUS_MAX_ITER, torch.int32)
+        r_p = r_d = sp.full(float("inf"), dtype)
+        status = sp.full(STATUS_MAX_ITER, torch.int32)
         with MONITOR.device_span("qp.iterate", q.device):
             while not done and it < cfg.max_iter:
                 x, z, y, r_p, r_d, status, done_t, ratio = check(x, z, y, rho_vec, op)
@@ -454,17 +459,9 @@ def _solve_one(P, q, A, l, u, cfg, x0, y0, box=False) -> tuple[QPSolution, torch
                     if bool((ratio > tol) | (ratio < 1.0 / tol)):
                         rho = torch.clamp(rho * ratio, 1e-6, 1e6)
                         rho_vec, op = operator(rho)
-        iterations = full(it, torch.int32)
+        iterations = sp.full(it, torch.int32)
 
-    return QPSolution(
-        x=x * d,
-        y=y * e / c,
-        z=z / e,
-        status=status,
-        iterations=iterations,
-        r_prim=r_p,
-        r_dual=r_d,
-    ), rho
+    return sp.solution(x, y, z, status, iterations, r_p, r_d), rho
 
 
 def _solve_lanes(P, q, A, l, u, cfg, x0, y0, box=False) -> tuple[QPSolution, torch.Tensor]:
@@ -482,84 +479,42 @@ def _solve_lanes(P, q, A, l, u, cfg, x0, y0, box=False) -> tuple[QPSolution, tor
     lanes alone are refactored and written back into the batch's
     operator: a lane's rho never moves another lane's.
     """
-    dtype, device = q.dtype, q.device
-    B, n = q.shape
-    m = l.shape[-1]
-
-    l = torch.clamp(l, -_INF, _INF)
-    u = torch.clamp(u, -_INF, _INF)
-
-    Ps, qs, As, c, d, e = _ruiz_equilibrate(P, q, A, cfg.scaling_iters)
-    ls = e * l
-    us = e * u
-    As = As.contiguous()
+    dtype = q.dtype
     sigma = cfg.sigma
-    A_chunk, A_d, g = _chunk_operator(As, box)
-    box_kw = {} if g is None else {"g": g, "sigma": sigma}
-    # the box block's A_d rides along lane by lane
-    lane_A_d = () if A_d is None else (A_d,)
 
-    x = torch.zeros(B, n, dtype=dtype, device=device) if x0 is None else x0 / d
-    y = (
-        torch.zeros(B, m, dtype=dtype, device=device)
-        if y0 is None
-        else c[:, None] * y0 / e
-    )
-    z = torch.clamp(_mv(As, x), ls, us)
+    sp, x, y, z = _scaled_problem(P, q, A, l, u, cfg, x0, y0, box)
+    Ps, As, qs, ls, us = sp.Ps, sp.As, sp.qs, sp.ls, sp.us
+    # the box block's A_d rides along lane by lane
+    lane_A_d = () if sp.A_d is None else (sp.A_d,)
 
     def operator(Ps, As, qs, rho_vec, A_d=None):
         return _build_operator(_factor(Ps, As, rho_vec, sigma), As, qs, sigma, A_d)
 
-    rho = torch.full((B,), cfg.rho, dtype=dtype, device=device)
+    rho = sp.full(cfg.rho, dtype)
     rho_vec = _rho_vector(rho[:, None], ls, us)
     W, c0 = _lanewise(operator, Ps, As, qs, rho_vec, *lane_A_d)
 
-    def chunk(x, z, y, n_iters, active=None):
-        return admm_chunk(
-            W, A_chunk, c0, rho_vec, ls, us, x, z, y,
-            n_iters=n_iters, alpha=cfg.alpha, active=active, **box_kw,
-        )
-
-    def residuals(x, y, z):
-        return _lane_residuals(cfg, Ps, As, qs, c, d, e, x, y, z)
-
-    def solution(x, y, z, status, iterations, r_p, r_d):
-        return QPSolution(
-            x=x * d,
-            y=y * e / c[:, None],
-            z=z / e,
-            status=status,
-            iterations=iterations,
-            r_prim=r_p,
-            r_dual=r_d,
-        )
-
-    def full(value, dtype):
-        return torch.full((B,), value, dtype=dtype, device=device)
-
     if cfg.fixed_iterations is not None:
-        x, z, y = chunk(x, z, y, cfg.fixed_iterations)
-        r_p, r_d, converged, near, _ = residuals(x, y, z)
-        iterations = full(cfg.fixed_iterations, torch.int32)
-        return solution(x, y, z, _status(converged, near), iterations, r_p, r_d), rho
+        x, z, y = sp.chunk(W, c0, rho_vec, x, z, y, cfg.fixed_iterations)
+        r_p, r_d, converged, near, _ = sp.residuals(x, y, z)
+        iterations = sp.full(cfg.fixed_iterations, torch.int32)
+        return sp.solution(x, y, z, _status(converged, near), iterations, r_p, r_d), rho
 
     it = 0
-    done = full(False, torch.bool)
+    done = sp.full(False, torch.bool)
     any_done = False
-    r_p = full(float("inf"), dtype)
-    r_d = full(float("inf"), dtype)
-    status = full(STATUS_MAX_ITER, torch.int32)
-    iterations = full(0, torch.int32)
+    r_p = sp.full(float("inf"), dtype)
+    r_d = sp.full(float("inf"), dtype)
+    status = sp.full(STATUS_MAX_ITER, torch.int32)
+    iterations = sp.full(0, torch.int32)
     while it < cfg.max_iter:
         running = ~done
-        x_new, z_new, y_new = chunk(
-            x, z, y, cfg.check_every, active=running if any_done else None
+        x_new, z_new, y_new = sp.chunk(
+            W, c0, rho_vec, x, z, y, cfg.check_every, active=running if any_done else None
         )
         it += cfg.check_every
-        r_pn, r_dn, converged, near, ratio = residuals(x_new, y_new, z_new)
-        prim_inf = (
-            _lane_certificate(cfg, As, ls, us, c, d, e, y_new - y) & ~converged
-        )
+        r_pn, r_dn, converged, near, ratio = sp.residuals(x_new, y_new, z_new)
+        prim_inf = sp.certificate(y_new - y) & ~converged
         # lanes that were done before this chunk keep what they had (the
         # kernel passed their iterates through)
         status = torch.where(running, _status(converged, near, prim_inf), status)
@@ -588,4 +543,4 @@ def _solve_lanes(P, q, A, l, u, cfg, x0, y0, box=False) -> tuple[QPSolution, tor
             W[lanes] = W_l
             c0[lanes] = c0_l
 
-    return solution(x, y, z, status, iterations, r_p, r_d), rho
+    return sp.solution(x, y, z, status, iterations, r_p, r_d), rho

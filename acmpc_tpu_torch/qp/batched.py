@@ -20,10 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from acmpc_tpu_torch.ops.admm_chunk import admm_chunk
 from acmpc_tpu_torch.ops.graph_loop import device_while
 from acmpc_tpu_torch.qp.admm import (
-    _INF,
     STATUS_MAX_ITER,
     STATUS_PRIMAL_INFEASIBLE,
     STATUS_SOLVED,
@@ -31,13 +29,10 @@ from acmpc_tpu_torch.qp.admm import (
     ADMMConfig,
     QPSolution,
     _build_operator,
-    _chunk_operator,
     _factor,
-    _lane_certificate,
-    _lane_residuals,
-    _mv,
     _rho_vector,
-    _ruiz_equilibrate,
+    _scaled_problem,
+    _status,
 )
 from acmpc_tpu_torch.utils.monitor import MONITOR
 
@@ -64,79 +59,35 @@ def _solve_box_qp_batched(P, q, A, l, u, cfg=ADMMConfig(), x0=None, y0=None, *, 
             "the batched solver runs fixed rho; use solve_box_qp for adaptive rho"
         )
     dtype, device = q.dtype, q.device
-    B, n = q.shape
-    m = l.shape[-1]
 
     # scaling, rho, K and its factorisation, the operator, the first iterates
     with MONITOR.device_span("qp.factor", device):
-        l = torch.clamp(l, -_INF, _INF)
-        u = torch.clamp(u, -_INF, _INF)
-
-        Ps, qs, As, c, d, e = _ruiz_equilibrate(P, q, A, cfg.scaling_iters)
-        ls = e * l
-        us = e * u
-        As = As.contiguous()
-        A_chunk, A_d, g = _chunk_operator(As, box)
-        box_kw = {} if g is None else {"g": g, "sigma": cfg.sigma}
+        sp, x, y, z = _scaled_problem(P, q, A, l, u, cfg, x0, y0, box)
         # filled on the device: a copy from host memory cannot be captured
-        rho_vec = _rho_vector(torch.full((), cfg.rho, dtype=dtype, device=device), ls, us)
-        W, c0 = _build_operator(_factor(Ps, As, rho_vec, cfg.sigma), As, qs, cfg.sigma, A_d)
-
-        x = torch.zeros(B, n, dtype=dtype, device=device) if x0 is None else x0 / d
-        y = (
-            torch.zeros(B, m, dtype=dtype, device=device)
-            if y0 is None
-            else c[:, None] * y0 / e
-        )
-        z = torch.clamp(_mv(As, x), ls, us)
-
-    def chunk(x, z, y, n_iters, active=None):
-        return admm_chunk(
-            W, A_chunk, c0, rho_vec, ls, us, x, z, y,
-            n_iters=n_iters, alpha=cfg.alpha, active=active, **box_kw,
-        )
-
-    def residuals(x, y, z):
-        return _lane_residuals(cfg, Ps, As, qs, c, d, e, x, y, z)[:4]
-
-    def prim_inf_certificate(dy):
-        return _lane_certificate(cfg, As, ls, us, c, d, e, dy)
-
-    def full(value, dtype):
-        return torch.full((B,), value, dtype=dtype, device=device)
+        rho_vec = _rho_vector(torch.full((), cfg.rho, dtype=dtype, device=device), sp.ls, sp.us)
+        K_inv = _factor(sp.Ps, sp.As, rho_vec, cfg.sigma)
+        W, c0 = _build_operator(K_inv, sp.As, sp.qs, cfg.sigma, sp.A_d)
 
     if cfg.fixed_iterations is not None:
         with MONITOR.device_span("qp.iterate", device):
-            x, z, y = chunk(x, z, y, cfg.fixed_iterations)
-            r_p, r_d, converged, near = residuals(x, y, z)
-        status = torch.where(
-            converged,
-            STATUS_SOLVED,
-            torch.where(near, STATUS_SOLVED_INACCURATE, STATUS_MAX_ITER),
-        ).to(torch.int32)
-        return QPSolution(
-            x=x * d,
-            y=y * e / c[:, None],
-            z=z / e,
-            status=status,
-            iterations=full(cfg.fixed_iterations, torch.int32),
-            r_prim=r_p,
-            r_dual=r_d,
-        )
+            x, z, y = sp.chunk(W, c0, rho_vec, x, z, y, cfg.fixed_iterations)
+            r_p, r_d, converged, near, _ = sp.residuals(x, y, z)
+        iterations = sp.full(cfg.fixed_iterations, torch.int32)
+        return sp.solution(x, y, z, _status(converged, near), iterations, r_p, r_d)
 
     def body(carry):
         x, z, y, it, done, r_p, r_d, status, its = carry
         # converged scenarios skip the chunk's iterations in the kernel
         active = ~done if cfg.tile_skip else None
-        xn, zn, yn = chunk(x, z, y, cfg.check_every, active=active)
+        xn, zn, yn = sp.chunk(W, c0, rho_vec, x, z, y, cfg.check_every, active=active)
         # frozen scenarios keep their converged/certified iterates
         keep = done[:, None]
         xn = torch.where(keep, x, xn)
         zn = torch.where(keep, z, zn)
         yn = torch.where(keep, y, yn)
         it = it + cfg.check_every
-        r_pn, r_dn, converged, near = residuals(xn, yn, zn)
-        prim_inf = prim_inf_certificate(yn - y) & ~converged & ~done
+        r_pn, r_dn, converged, near, _ = sp.residuals(xn, yn, zn)
+        prim_inf = sp.certificate(yn - y) & ~converged & ~done
         newly_done = (converged | prim_inf) & ~done
         # still-running scenarios carry the near flag, so a max_iter exit
         # reports STATUS_SOLVED_INACCURATE within inaccurate_factor * tol
@@ -162,19 +113,11 @@ def _solve_box_qp_batched(P, q, A, l, u, cfg=ADMMConfig(), x0=None, y0=None, *, 
     # the chunk loop as JAX's lax.while_loop: the stopping test stays on
     # the device (one WHILE node under a CUDA graph capture)
     carry = (
-        x, z, y, torch.zeros((), dtype=torch.int32, device=device), full(False, torch.bool),
-        full(float("inf"), dtype), full(float("inf"), dtype),
-        full(STATUS_MAX_ITER, torch.int32), full(cfg.max_iter, torch.int32),
+        x, z, y, torch.zeros((), dtype=torch.int32, device=device), sp.full(False, torch.bool),
+        sp.full(float("inf"), dtype), sp.full(float("inf"), dtype),
+        sp.full(STATUS_MAX_ITER, torch.int32), sp.full(cfg.max_iter, torch.int32),
     )
     with MONITOR.device_span("qp.iterate", device):
         x, z, y, _, _, r_p, r_d, status, its = device_while(cond, body, carry)
 
-    return QPSolution(
-        x=x * d,
-        y=y * e / c[:, None],
-        z=z / e,
-        status=status,
-        iterations=its,
-        r_prim=r_p,
-        r_dual=r_d,
-    )
+    return sp.solution(x, y, z, status, its, r_p, r_d)

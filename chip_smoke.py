@@ -10,12 +10,11 @@ Phases, each printing one line:
   1. device: card name and power limit (nvidia-smi), torch/CUDA versions,
      TF32 flags (must be off), CUDA 12.4 or later in PyTorch's build and
      the driver (conditional WHILE nodes);
-  2. build: compiles the six kernel sources (csrc/admm_chunk.cu, the
+  2. build: compiles the four kernel sources (csrc/admm_chunk.cu, the
      cluster kernel; csrc/admm_chunk_split.cu, the split kernel;
-     csrc/admm_chunk_stream.cu, the streaming kernel;
-     csrc/track_chain.cu, the chain scan; csrc/track_chain_edges.cu,
-     the fused chain-edges kernel; and csrc/graph_loop.cu, the device
-     loop's condition kernel, which checks for CUDA 12.4) side by side with nvcc into
+     csrc/track_chain_edges.cu, the fused chain-edges kernel; and
+     csrc/graph_loop.cu, the device loop's condition kernel, which
+     checks for CUDA 12.4) side by side with nvcc into
      build/torch_kernels/, and prints what ptxas reports of each kernel
      (registers, spills);
   3. kernel: each variant against the plain PyTorch version on random
@@ -24,10 +23,9 @@ Phases, each printing one line:
      kernel at the horizon-50 shapes (n = 248, m = 398), B in {1, 7, 256};
      the split kernel at the horizon-100 shapes (n = 498, m = 798), B in
      {1, 8}. Times, bound and plain time at B in {1, 256} (horizon 50) and
-     {1, 8} (horizon 100), each beside the streaming kernel on the same
-     inputs (the figure before the cluster and split designs); the
-     cluster sizes C in {5, 6, 8} at B = 256 and {8, 16} at B = 1, and the
-     split kernel's C from 8 to 16 at B = 8 and {8, 16} at B = 1; for
+     {1, 8} (horizon 100); the cluster sizes C in {5, 6, 8} at B = 256
+     and {8, 16} at B = 1, and the split kernel's C from 8 to 16 at B = 8
+     and {8, 16} at B = 1; for
      every C, the wrapper's shared-memory layout against the library's,
      and for every C that fits, its shared bytes per CTA and how many such
      clusters the card holds. On the box block (the main path's QPs, whose A is [A_d; I]:
@@ -78,19 +76,17 @@ Phases, each printing one line:
      reader (parameter count, stored dtype); the IoU gate of
      tests/test_assets.py at 320x192 in fp32 and bf16, the card's fp32
      mask against the port's on the CPU, the bf16 mask against the fp32
-     one, and the card's fp32 polylines against the CPU's; the chain-scan
-     kernel (csrc/track_chain.cu, on no path) bit-equal to its plain
-     version at 1280x736 on masks the sim renders at 16 poses and on four
-     adversarial masks scaled up, at bands 4 and 1, both timed; the fused
+     one, and the card's fp32 polylines against the CPU's; the fused
      chain-edges kernel (csrc/track_chain_edges.cu) bit-equal to its
-     plain version (edges and mask) on the same masks and bands, timed in
-     turns with the composite of PyTorch ops around the scan kernel and
-     with the plain version, beside its bound and its chain floor;
+     plain version (edges and mask) at 1280x736 on masks the sim renders
+     at 16 poses and on four adversarial masks scaled up, at bands 4 and
+     1, timed in turns with the plain version, beside its bound and its
+     chain floor;
      perception per frame at 1280x736 bf16 (frames chained through the
      mask) with its FPN / extraction split; the camera-to-command loop
      (``bench/perception_loop.perception_in_loop``) for 40 frames: every
      solve solved, the car within the 5 m half width, one chain-edges
-     launch per frame and no chain-scan launch, the cluster ADMM kernel
+     launch per frame, the cluster ADMM kernel
      launched; the loop's launches and busy time per frame under
      ``torch.profiler`` (10 frames);
   11. localisation: the seven configs' localisation blocks parse; the
@@ -281,7 +277,7 @@ RACELINE_BATCH, RACELINE_STEPS = 4, 10
 LAP_BATCH, LAP_STEPS = 32, 100
 # the all-tracks grid (phase 9): scenarios per track
 GRID_SCENARIOS = 36
-# perception (phase 10): sim poses of the chain-scan check, frames of
+# perception (phase 10): sim poses of the chain-edges check, frames of
 # the chained per-frame timing, of the loop (bench.py's short form) and
 # of its profile
 CHAIN_POSES = 16
@@ -591,17 +587,17 @@ def phase_build() -> dict:
 
     dev = torch.cuda.current_device()
     t0 = time.perf_counter()
-    # every source compiles at once: the chunk kernels' three, the chain's
-    # two, the graph loop's
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+    # every source compiles at once: the chunk kernels' two, the chain
+    # edges', the graph loop's
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         builds = [
             pool.submit(f, dev)
-            for f in (ops._libraries, chain._library, chain._edges_library, graph_loop._library)
+            for f in (ops._libraries, chain._edges_library, graph_loop._library)
         ]
         for done in builds:
             done.result()
     info = {
-        "sources": sorted([*ops.SOURCES.values(), chain.SOURCE, chain.EDGES_SOURCE, graph_loop.SOURCE]),
+        "sources": sorted([*ops.SOURCES.values(), chain.EDGES_SOURCE, graph_loop.SOURCE]),
         "build_s": time.perf_counter() - t0,
     }
     # what ptxas said of each kernel built in this run
@@ -704,9 +700,7 @@ def _layouts(dev) -> dict:
 
 def phase_kernel() -> dict:
     """Every kernel variant against its plain version on the card, with
-    times; the streaming kernel on the same inputs as the figure before
-    the cluster design (horizon 50) and before the split design (horizon
-    100); and the cluster-size sweeps."""
+    times, and the cluster-size sweeps."""
     import torch
 
     import acmpc_tpu_torch.ops.admm_chunk as ops
@@ -721,7 +715,6 @@ def phase_kernel() -> dict:
         (H100, MAPPING_BATCH): [ops.split_plan(*H100, C) for C in (8, 9, 10, 12, 14, 16)],
     }
     for (n, m), batches in ((H50, (1, 7, BATCH)), (H100, (1, MAPPING_BATCH))):
-        stream_plan = ops.ChunkPlan("stream", 1, ops.stream_smem_bytes(n, m))
         for batch in batches:
             inputs = random_chunk_inputs(batch, n, m, seed=batch, device=DEVICE)
             active = torch.arange(batch, device=DEVICE) % 3 != 1
@@ -755,13 +748,6 @@ def phase_kernel() -> dict:
                     row["bound_ms"], row["bound_by"] = chunk_bound(
                         n, m, N_ITERS, n_active, batch, masked
                     )
-                    # the streaming kernel on the same inputs: the figure
-                    # before the cluster and split designs
-                    row["stream_max_abs_err"] = compare(run(stream_plan), want, f"{key} stream")
-                    row["stream_ms"] = time_cuda_ms(lambda: run(stream_plan), reps=20)
-                    row["streaming_bound_ms"] = 1e3 * N_ITERS * n_active * 4 * (
-                        n * (n + m) + m * n
-                    ) / HBM_BYTES_PER_S
                     if not masked:
                         row["ms_by_C"] = {}
                         for p in sweep[(n, m), batch]:
@@ -1153,10 +1139,10 @@ def _counted(fn):
     from acmpc_tpu_torch.ops import graph_loop
     from acmpc_tpu_torch.ops.admm_chunk import admm_chunk
     from acmpc_tpu_torch.ops.jpeg_round_trip import jpeg_round_trip
-    from acmpc_tpu_torch.ops.track_chain import chain_edges, chain_scan
+    from acmpc_tpu_torch.ops.track_chain import chain_edges
 
     counters = (
-        admm_chunk.launches, chain_scan.launches, chain_edges.launches, graph_loop.device_while.launches,
+        admm_chunk.launches, chain_edges.launches, graph_loop.device_while.launches,
         jpeg_round_trip.launches,
     )
     graph_loop.settle_launches()  # the replays' loop bodies, before the clear
@@ -1403,16 +1389,6 @@ def _iou(pred: np.ndarray, truth: np.ndarray) -> float:
     return float((pred & truth).sum() / max((pred | truth).sum(), 1))
 
 
-def _chain_bound(rows: int, width: int) -> tuple[float, str]:
-    """Least time of one chain-scan launch on an H100: its rows read once
-    and its selection written once (a byte each), against about eight
-    integer operations per pixel (run id, seed, stamp, select, store) at
-    the fp32 rate; returns (ms, "bytes" | "operations")."""
-    t_bytes = 2 * rows * width / HBM_BYTES_PER_S
-    t_ops = 8 * rows * width / FP32_FLOP_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def _edges_bound(height: int, width: int, with_mask: bool) -> tuple[float, str]:
     """Least time of one chain-edges launch on an H100: the mask read once
     (a byte a pixel), each row's left and right (int64) and valid (bool)
@@ -1541,7 +1517,7 @@ def _perceive_paths(perc, frames: list) -> dict:
 
 
 def phase_perception() -> dict:
-    """Perception on the card: checkpoint, IoU gate, chain-scan kernel
+    """Perception on the card: checkpoint, IoU gate, chain-edges kernel
     against its plain version at 1280x736, the per-frame time, the JPEG
     round-trip kernels and ``perceive`` on each path, and the
     camera-to-command loop."""
@@ -1556,7 +1532,6 @@ def phase_perception() -> dict:
     from acmpc_tpu_torch.ops.admm_chunk import CLUSTER_BOX
     from acmpc_tpu_torch.perception.camera import CameraInfo
     from acmpc_tpu_torch.perception.perceiver import Perceiver
-    from acmpc_tpu_torch.perception.tracks import scan_rows
     from acmpc_tpu_torch.runtime.sim import SyntheticSimulator
 
     t_phase = time.perf_counter()
@@ -1615,49 +1590,13 @@ def phase_perception() -> dict:
         "centre_max_abs_err_card_cpu_m": centre_err,
     }
 
-    # 3. the chain-scan kernel against its plain version at 1280x736
+    # 3. the masks of the extraction's checks at 1280x736
     H, W = cfg.image_height, cfg.image_width
     centre, left, right, lap_m = loop.circuit()
     sim = loop.make_sim(cfg, centre, left, right)
     cases = [(f"sim{k}", m, cfg.n_rows_to_remove_bonnet) for k, m in enumerate(loop.sim_masks(sim, centre, CHAIN_POSES))]
     adversarial, bonnet = loop.adversarial_masks(H, W)
     cases += [(name, m, bonnet) for name, m in adversarial.items()]
-    checked, selected, max_err = 0, 0, 0
-    timing_rows = {}
-    for name, mask_np, bonnet_row in cases:
-        mask = torch.as_tensor(mask_np, device=DEVICE)
-        for band in (4, 1):
-            _, rows, gap = scan_rows(mask, bonnet_row, band=band)
-            got = chain.chain_scan(rows, gap)
-            want = chain.chain_scan_reference(rows, gap)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                bad = int((got != want).sum())
-                raise RuntimeError(f"chain scan {name} band {band}: {bad} pixels differ from the plain version")
-            checked += 1
-            selected += int(got.sum())
-            max_err = max(max_err, int((got.int() - want.int()).abs().max()))
-            if name == "sim0":
-                timing_rows[band] = (rows, gap)
-    chain_timing = {}
-    for band, (rows, gap) in timing_rows.items():
-        n = rows.shape[0]
-        bound_ms, bound_by = _chain_bound(n, W)
-        chain_timing[f"band{band}"] = {
-            "rows": n,
-            "ms": time_cuda_ms(lambda: chain._launch(rows, gap), reps=50),
-            "plain_ms": time_cuda_ms(lambda: chain.chain_scan_reference(rows, gap), reps=3),
-            "bound_ms": bound_ms,
-            "bound_by": bound_by,
-        }
-    info["chain_scan"] = {
-        "resolution": f"{W}x{H}",
-        "masks": len(cases),
-        "comparisons_bit_equal": checked,
-        "pixels_selected": selected,
-        "max_abs_err": max_err,
-        **chain_timing,
-    }
 
     # 3b. the fused chain-edges kernel against its plain version, edges
     # and mask, on the same masks and bands
@@ -1674,15 +1613,13 @@ def phase_perception() -> dict:
                     raise RuntimeError(f"chain edges {name} band {band}: {label} differs from the plain version ({bad})")
                 edges_err = max(edges_err, int((g.long() - w.long()).abs().max()))
             checked += 1
-    # timed on sim0 in turns: fused kernel, the composite around the scan
-    # kernel, the plain version, then back
+    # timed on sim0 in turns: fused kernel, the plain version, then back
     mask = torch.as_tensor(cases[0][1], device=DEVICE)
     bonnet_row = cases[0][2]
     edges_timing = {}
     for band in (4, 1):
         runs = {
             "ms": (lambda: chain._launch_edges(mask, bonnet_row, 3, band, False), 100),
-            "composite_ms": (lambda: chain.chain_edges_reference(mask, bonnet_row, 3, band, scan=chain._launch), 50),
             "plain_ms": (lambda: chain.chain_edges_reference(mask, bonnet_row, 3, band), 2),
         }
         turns = {key: [] for key in runs}
@@ -1728,10 +1665,9 @@ def phase_perception() -> dict:
     if not run["max_offtrack_m"] < loop.HALF_WIDTH:
         raise RuntimeError(f"perception loop: the car left the track by {run['max_offtrack_m']} m")
     # one fused extraction per frame, plus the untimed warm frame (replays
-    # of the pipeline's graph, which the per-frame timing captured); the
-    # scan kernel is on no path
+    # of the pipeline's graph, which the per-frame timing captured)
     warm = 1 + run["captured_warm_frame"]
-    if launches.get(chain.TRACK_CHAIN_EDGES, 0) != run["frames"] + warm or chain.TRACK_CHAIN_SCAN in launches:
+    if launches.get(chain.TRACK_CHAIN_EDGES, 0) != run["frames"] + warm:
         raise RuntimeError(f"perception loop: chain launches {launches} for {run['frames']} + {warm} frames")
     # the loop feeds its frames to ``_pipeline`` as they are, as bench.py's
     # loop does: no JPEG round trip (4b counts perceive's)
@@ -3055,11 +2991,10 @@ def kernels_line(
     bodies' once a trip), each counted by its own name: the box-block cluster kernel
     takes every control QP and the racelines up to 942 points, the
     box-block split kernel the 1,953-point raceline (no path masks it);
-    the dense cluster kernel phase 15's random QPs; the dense split and
-    streaming kernels no path (no caller hands them a dense operator that
-    no cluster holds); chain edges phase 10's loop, phase 12 and 13's
-    racing agent and 16's loop; the chain scan none since the chain-edges
-    kernel; the graph loop's condition kernel phases 12, 13 and 17 (once
+    the dense cluster kernel phase 15's random QPs; the dense split
+    kernel no path (no caller hands it a dense operator that no cluster
+    holds); chain edges phase 10's loop, phase 12 and 13's racing agent
+    and 16's loop; the graph loop's condition kernel phases 12, 13 and 17 (once
     a replay of a step, once a chunk); the JPEG round trip's two kernels
     phase 10's ``perceive`` and 12 and 13's racing agent, a frame each
     (a max_abs_err of 0: byte-equal to the plain version and OpenCV, or
@@ -3067,10 +3002,10 @@ def kernels_line(
     and written once by the colour kernel; ms under the profiler on a
     simulator frame). Numbers from phase 3 (dense:
     horizon 50 at B = 256, the
-    mapping shapes for the split and streaming kernels; box block:
+    mapping shapes for the split kernel; box block:
     horizon 50 at B = 256 for the cluster kernel, the 1,953-point
     raceline for the split kernel, with the bound of what those inputs
-    need) and for both chain kernels from phase 10 at 1280x736, band 4."""
+    need) and for the chain-edges kernel from phase 10 at 1280x736, band 4."""
     import acmpc_tpu_torch.ops.admm_chunk as ops
     import acmpc_tpu_torch.ops.jpeg_round_trip as jpeg
     import acmpc_tpu_torch.ops.track_chain as chain
@@ -3101,7 +3036,6 @@ def kernels_line(
     n50, n100 = H50[0], H100[0]
     h50, h50a = f"n{n50}_B{BATCH}", f"n{n50}_B{BATCH}_active"
     h100, h100a = f"n{n100}_B{MAPPING_BATCH}", f"n{n100}_B{MAPPING_BATCH}_active"
-    scan = perception["chain_scan"]["band4"]
     edges = perception["chain_edges"]["band4"]
     sim_jpeg = perception["jpeg_round_trip"]["sim"]
     return {
@@ -3114,21 +3048,6 @@ def kernels_line(
             row(ops.SPLIT_ACTIVE, h100a, 103),
             row(ops.SPLIT_BOX, "box_n1953_B1", 99),
             row(ops.SPLIT_BOX_ACTIVE, "box_n1953_B1_active", 103),
-            row(ops.STREAM, h100, 99, prefix="stream_"),
-            row(ops.STREAM_ACTIVE, h100a, 103, prefix="stream_"),
-            {
-                "name": chain.TRACK_CHAIN_SCAN,
-                "route": "cuda",
-                "source": f"acmpc_tpu_torch/csrc/{chain.SOURCE}",
-                "replaces": "acmpc_tpu/perception/tracks.py:121",
-                "launches": perception["launches"].get(chain.TRACK_CHAIN_SCAN, 0),
-                "max_abs_err": perception["chain_scan"]["max_abs_err"],
-                "ms": scan["ms"],
-                "plain_ms": scan["plain_ms"],
-                "bound_ms": scan["bound_ms"],
-                "bound_by": scan["bound_by"],
-                "library_ms": None,
-            },
             {
                 "name": chain.TRACK_CHAIN_EDGES,
                 "route": "cuda",

@@ -350,7 +350,7 @@ def test_kernel_names():
     assert kernel_name(split_plan(1953, 1953, 16, n_b=1953), True) == ops.SPLIT_BOX_ACTIVE
     assert kernel_name(cluster_plan(248, 398, 5), False) == ops.CLUSTER
     assert kernel_name(split_plan(498, 798, 16), True) == ops.SPLIT_ACTIVE
-    assert len(set(KERNEL_NAMES)) == 10
+    assert len(set(KERNEL_NAMES)) == 8
 
 
 # -- the wrapper's refusals ---------------------------------------------------------
@@ -384,13 +384,11 @@ def test_wrapper_refuses_bad_box_inputs():
 
 def test_plans_refuse_the_other_form():
     # a box plan never runs a dense operator, nor a dense plan a box
-    # block; the streaming kernel takes no box block. Checked before any
-    # library is touched.
+    # block. Checked before any library is touched.
     inp = _qps(1, *LAYOUTS["control"], seed=7)
     args, g = _box_args(inp)
     n, m = inp["x"].shape[1], inp["z"].shape[1]
-    stream = ops.ChunkPlan("stream", 1, ops.stream_smem_bytes(n, m))
-    for plan in (cluster_plan(n, m, 4), split_plan(n, m, 4), stream):
+    for plan in (cluster_plan(n, m, 4), split_plan(n, m, 4)):
         with pytest.raises(ValueError):
             ops._launch(plan, *args, n_iters=1, alpha=ALPHA, g=g, sigma=SIGMA)
     with pytest.raises(ValueError):
@@ -408,17 +406,15 @@ def test_no_silent_fallback_off_cpu_with_the_box_block():
 
 
 def _spy(monkeypatch):
-    """Records, per chunk the QP engines run, whether it took the box block."""
+    """Records, per chunk the QP engines run (every engine's chunk is
+    ``qp/admm.py``'s call), whether it took the box block."""
     calls = []
 
     def spy(*args, g=None, sigma=None, **kw):
         calls.append(g is not None)
         return admm_chunk(*args, g=g, sigma=sigma, **kw)
 
-    import acmpc_tpu_torch.qp.batched as tbatched
-
     monkeypatch.setattr(tadmm, "admm_chunk", spy)
-    monkeypatch.setattr(tbatched, "admm_chunk", spy)
     return calls
 
 

@@ -159,7 +159,7 @@ def test_cpu_path_counts_no_launch():
     admm_chunk(*args, n_iters=2, alpha=ALPHA, active=torch.tensor([True, False, True]))
     # the dense kernels and variants, and the box block's of the cluster
     # and split kernels
-    assert len(KERNEL_NAMES) == 10
+    assert len(KERNEL_NAMES) == 8
     assert all(admm_chunk.launches[name] == 0 for name in KERNEL_NAMES)
     assert sum(admm_chunk.launches.values()) == 0
 

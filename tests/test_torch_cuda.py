@@ -85,10 +85,6 @@ def _assert_matches(got, want):
         torch.testing.assert_close(g, w, rtol=0.0, atol=1e-4 * scale)
 
 
-def _stream_plan(n, m):
-    return ChunkPlan("stream", 1, ops.stream_smem_bytes(n, m))
-
-
 def _largest_cluster_shape():
     h = max(h for h in range(2, 200) if plan_chunk(5 * h - 2, 8 * h - 2, 1).variant == "cluster")
     return 5 * h - 2, 8 * h - 2
@@ -116,21 +112,19 @@ SHAPES = {"odd": (21, 30), "2mod4": (20, 30), "h50": (248, 398), "largest": None
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["cluster", "stream"])
 @pytest.mark.parametrize("shape", list(SHAPES))
 @pytest.mark.parametrize("masked", [False, True])
-def test_variants_match_reference_on_card(cuda_device, variant, shape, masked):
+def test_variants_match_reference_on_card(cuda_device, shape, masked):
     n, m = SHAPES[shape] or _largest_cluster_shape()
     batch = 3
     args = _chunk_inputs(batch, 11, cuda_device, n, m)
     active = torch.tensor([True, False, True], device=cuda_device) if masked else None
-    plan = plan_chunk(n, m, batch) if variant == "cluster" else _stream_plan(n, m)
-    assert plan.variant == variant
+    plan = plan_chunk(n, m, batch)
+    assert plan.variant == "cluster"
     admm_chunk.launches.clear()
     got = ops._launch(plan, *args, n_iters=ITERS, alpha=ALPHA, active=active)
     want = admm_chunk_reference(*args, n_iters=ITERS, alpha=ALPHA, active=active)
-    name = ops.CLUSTER if variant == "cluster" else ops.STREAM
-    assert dict(admm_chunk.launches) == {f"{name}[active]" if masked else name: 1}
+    assert dict(admm_chunk.launches) == {ops.CLUSTER_ACTIVE if masked else ops.CLUSTER: 1}
     _assert_matches(got, want)
     if masked:
         for g, start in zip(got, args[6:]):
@@ -154,11 +148,10 @@ def test_cluster_sizes_and_unaligned_bases_on_card(cuda_device, C, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["cluster", "stream"])
-def test_zero_iterations_on_card(cuda_device, variant):
+def test_zero_iterations_on_card(cuda_device):
     n, m = SHAPES["h50"]
     args = _chunk_inputs(2, 13, cuda_device, n, m)
-    plan = plan_chunk(n, m, 2) if variant == "cluster" else _stream_plan(n, m)
+    plan = plan_chunk(n, m, 2)
     got = ops._launch(plan, *args, n_iters=0, alpha=ALPHA)
     torch.cuda.synchronize()
     for g, start in zip(got, args[6:]):
@@ -701,7 +694,7 @@ def test_multi_track_on_card_matches_golden(cuda_device):
         )
 
 
-# -- perception: the chain-scan kernel and the Perceiver on the card
+# -- perception: the connected runs and the Perceiver on the card
 def _perception_cases(n_poses: int = 4):
     """(mask, bonnet row) at 1280x736: the four adversarial masks scaled
     up, and masks the port's sim renders at ``n_poses`` poses of the
@@ -718,79 +711,16 @@ def _perception_cases(n_poses: int = 4):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("band", [1, 4])
-def test_chain_kernel_matches_plain_on_card(cuda_device, band):
-    from acmpc_tpu_torch.ops.track_chain import TRACK_CHAIN_SCAN, chain_scan, chain_scan_reference
-    from acmpc_tpu_torch.perception.tracks import scan_rows
-
-    cases = _perception_cases()
-    chain_scan.launches.clear()
-    for mask, bonnet in cases:
-        _, rows, gap = scan_rows(torch.as_tensor(mask, device=cuda_device), bonnet, band=band)
-        got = chain_scan(rows, gap)
-        assert got.dtype == torch.bool and got.shape == rows.shape
-        assert torch.equal(got, chain_scan_reference(rows, gap))
-        assert torch.equal(got.cpu(), chain_scan(rows.cpu(), gap))
-        # a uint8 view of the same rows gives the same chain
-        assert torch.equal(chain_scan(rows.to(torch.uint8), gap), got)
-    assert dict(chain_scan.launches) == {TRACK_CHAIN_SCAN: 2 * len(cases)}
-
-
-@pytest.mark.cuda
-def test_chain_kernel_gaps_and_widths_on_card(cuda_device):
-    from acmpc_tpu_torch.ops.track_chain import chain_scan, chain_scan_reference
-
-    rng = np.random.default_rng(0)
-    frames = rng.random((3, 40, 1280)) < 0.6
-    for r in range(38, -1, -1):  # runs that merge, split and break
-        frames[:, r] |= frames[:, r + 1] & (rng.random((3, 1280)) < 0.5)
-    for gap in (0, 1, 3):
-        for frame in frames:
-            rows = torch.as_tensor(frame, device=cuda_device)
-            assert torch.equal(chain_scan(rows, gap), chain_scan_reference(rows, gap))
-    # widths that leave threads without columns, and one column
-    for w in (1, 7, 300, 1281):
-        rows = torch.as_tensor(rng.random((12, w)) < 0.7, device=cuda_device)
-        assert torch.equal(chain_scan(rows, 2), chain_scan_reference(rows, 2))
-
-
-@pytest.mark.cuda
-def test_chain_kernel_refuses_bad_rows_on_card(cuda_device):
-    from acmpc_tpu_torch.ops import track_chain
-
-    track_chain.chain_scan.launches.clear()
-    good = torch.ones((8, 64), dtype=torch.bool, device=cuda_device)
-    bad = [
-        (good.cpu(), ValueError),  # the kernel's entry takes CUDA tensors only
-        (good.float(), TypeError),
-        (good[0], ValueError),
-        (good[None].expand(2, 8, 64).contiguous(), ValueError),  # one frame only
-        (good[None, None], ValueError),
-        (good.T, ValueError),
-    ]
-    for rows, error in bad:
-        with pytest.raises(error):
-            track_chain._launch(rows, 1)
-    for rows, error in bad[1:]:
-        with pytest.raises(error):
-            track_chain.chain_scan(rows, 1)
-    assert sum(track_chain.chain_scan.launches.values()) == 0
-
-
-@pytest.mark.cuda
 def test_connected_runs_launch_the_kernel_once_on_card(cuda_device):
-    # the connected runs are the fused kernel's mask; the scan kernel is
-    # on no path
-    from acmpc_tpu_torch.ops.track_chain import TRACK_CHAIN_EDGES, chain_edges, chain_scan
+    # the connected runs are the fused kernel's mask
+    from acmpc_tpu_torch.ops.track_chain import TRACK_CHAIN_EDGES, chain_edges
     from acmpc_tpu_torch.perception.tracks import select_vehicle_connected_runs
 
     mask, bonnet = _perception_cases(1)[-1]
-    chain_scan.launches.clear()
     chain_edges.launches.clear()
     got = select_vehicle_connected_runs(torch.as_tensor(mask, device=cuda_device), bonnet, band=4)
     want = select_vehicle_connected_runs(torch.as_tensor(mask), bonnet, band=4)
     assert dict(chain_edges.launches) == {TRACK_CHAIN_EDGES: 1}
-    assert sum(chain_scan.launches.values()) == 0
     assert got.dtype == torch.uint8 and torch.equal(got.cpu(), want)
 
 
@@ -918,14 +848,13 @@ def test_perceiver_on_card_matches_cpu_fp32(cuda_device):
     # may flip; a flipped edge pixel moves a boundary point, hence the
     # polylines' 0.05 m (tests/test_torch_perception.py's tolerance for it)
     from acmpc_tpu_torch.bench import perception_loop as loop
-    from acmpc_tpu_torch.ops.track_chain import TRACK_CHAIN_EDGES, chain_edges, chain_scan
+    from acmpc_tpu_torch.ops.track_chain import TRACK_CHAIN_EDGES, chain_edges
     from acmpc_tpu_torch.perception.perceiver import Perceiver
 
     cfg = loop.perception_config(320, 192, "fp32")
     centre, left, right, _ = loop.circuit()
     frame = loop.make_sim(cfg, centre, left, right).reset()["image"]
     out = {}
-    chain_scan.launches.clear()
     chain_edges.launches.clear()
     for device in ("cpu", cuda_device):
         perc = Perceiver(cfg, device=device)
@@ -933,7 +862,6 @@ def test_perceiver_on_card_matches_cpu_fp32(cuda_device):
         assert drivable.device.type == torch.device(device).type
         out[str(device)] = (drivable.cpu(), semantics.cpu(), {k: v.cpu() for k, v in tracks.items()})
     assert dict(chain_edges.launches) == {TRACK_CHAIN_EDGES: 1}
-    assert sum(chain_scan.launches.values()) == 0
     (d_gpu, s_gpu, t_gpu), (d_cpu, s_cpu, t_cpu) = out[str(cuda_device)], out["cpu"]
     assert (d_gpu == d_cpu).float().mean() >= 0.999
     assert (s_gpu == s_cpu).float().mean() >= 0.999

@@ -221,16 +221,6 @@ def test_row_edge_columns_match_jax(name, sim_masks):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-def test_chain_scan_on_cpu_takes_the_plain_version():
-    track_chain.chain_scan.launches.clear()
-    rows = torch.from_numpy(_random_mask(3))
-    np.testing.assert_array_equal(
-        track_chain.chain_scan(rows, 1).numpy(),
-        track_chain.chain_scan_reference(rows, 1).numpy(),
-    )
-    assert sum(track_chain.chain_scan.launches.values()) == 0
-
-
 @pytest.mark.parametrize(
     "rows, error",
     [
@@ -239,7 +229,6 @@ def test_chain_scan_on_cpu_takes_the_plain_version():
         (torch.zeros(2, 4, 8, dtype=torch.bool), ValueError),  # one frame only
         (torch.zeros(2, 2, 4, 8, dtype=torch.bool), ValueError),
         (torch.zeros(8, 4, dtype=torch.bool).T, ValueError),
-        (torch.zeros(2, track_chain.MAX_WIDTH + 1, dtype=torch.bool), ValueError),
     ],
 )
 def test_chain_scan_refuses_bad_rows(rows, error):

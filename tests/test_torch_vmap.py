@@ -51,6 +51,7 @@ from acmpc_tpu_torch.qp.admm import (
     STATUS_PRIMAL_INFEASIBLE,
     STATUS_SOLVED,
     ADMMConfig,
+    _scaled_problem,
     _solve_lanes,
     _solve_one,
     solve_box_qp,
@@ -192,6 +193,81 @@ def test_lanes_match_jax_vmap_rti(lanes):
     np.testing.assert_array_equal(ours.status.numpy(), np.asarray(ref.status))
     feasible = slice(0, -1)  # the infeasible lane's iterates grow without bound
     np.testing.assert_allclose(ours.x.numpy()[feasible], np.asarray(ref.x)[feasible], **X_TOL)
+
+
+def _certificate_qps(layout, lanes, mpc):
+    """Three QPs of one layout, the last primal infeasible, and the rows
+    (i, j) that certify it: dy = +1 on row i and -1 on row j (unscaled)
+    has A'dy = 0 and u_i - l_j < 0. ``box``: the control QP (A = [A_d; I])
+    of three windows, the last with its first dense row made the identity
+    row of variable 0 and pinned to 5 while that variable's box row is
+    pinned to 0. ``dense``: three random QPs, the last two copies of a row
+    pinned to 0 and to 5 (``_infeasible_qp``)."""
+    if layout == "dense":
+        return [_torch(qp) for qp in lanes[0][-3:]], (0, 1)
+    qps = []
+    for ref in _tracks(CONTROL["horizon"])[:3]:
+        qp = mpc._prepare(mpc.initial_state(), torch.as_tensor(ref), 28.0, False, 0.0)[2]
+        qps.append([t.clone() for t in qp])
+    P, q, A, l, u = qps[-1]
+    m_d = A.shape[0] - A.shape[1]
+    A[0] = A[m_d]
+    l[0] = u[0] = 5.0
+    l[m_d] = u[m_d] = 0.0
+    return qps, (m_d, 0)
+
+
+@pytest.mark.parametrize("check", ["residuals", "certificate"])
+@pytest.mark.parametrize("layout", ["box", "dense"])
+def test_one_qp_equals_its_lane_in_the_scaled_problem(lanes, mpcs, layout, check):
+    """The scaled problem, its residual check and its infeasibility
+    certificate take one QP (q (n,)) or lanes (q (B, n)) with the same
+    arithmetic: one QP alone gives, bit for bit on the CPU, what its lane
+    of a three-lane call gives. ``_solve_one`` runs this code as
+    ``_solve_lanes`` and the batched solver do."""
+    qps, (i, j) = _certificate_qps(layout, lanes, mpcs[0])
+    box = layout == "box"
+    stacked = [torch.stack(t) for t in zip(*qps)]
+    B, n, m = len(qps), stacked[1].shape[-1], stacked[3].shape[-1]
+    rng = np.random.default_rng(11)
+
+    def draw(*shape):
+        return torch.as_tensor(rng.normal(scale=0.5, size=shape).astype(np.float32))
+
+    cfg = ADMMConfig()
+    x0, y0, x, y, z = draw(B, n), draw(B, m), draw(B, n), draw(B, m), draw(B, m)
+    lane_sp, *lane_start = _scaled_problem(*stacked, cfg, x0, y0, box)
+    if check == "residuals":
+        lane_out = lane_sp.residuals(x, y, z)
+    else:
+        # unscaled: the last lane +1 on row i and -1 on row j; the others
+        # +1 and -1 on two of their loose rows, a support of about 2e30
+        # that no lane may see of another's
+        unit = torch.zeros(B, m)
+        unit[-1, i], unit[-1, j] = 1.0, -1.0
+        loose = (stacked[4][:-1] >= 1e29) & (stacked[3][:-1] <= -1e29)
+        first, second = loose.to(torch.int8).argsort(dim=-1, descending=True, stable=True)[:, :2].T
+        rows = torch.arange(B - 1)
+        assert loose[rows, first].all() and loose[rows, second].all()
+        unit[rows, first], unit[rows, second] = 1.0, -1.0
+        dy = unit / lane_sp.e
+        lane_out = (lane_sp.certificate(dy),)
+        assert lane_out[0].tolist() == [False, False, True]
+    for b, qp in enumerate(qps):
+        sp, *start = _scaled_problem(*qp, cfg, x0[b], y0[b], box)
+        for f in ("Ps", "qs", "As", "ls", "us", "c", "d", "e", "A_chunk", "g"):
+            want = getattr(lane_sp, f)
+            assert (want is None) == (not box and f == "g"), f
+            if want is not None:
+                assert torch.equal(getattr(sp, f), want[b]), f"{b} {f}"
+        for got, want in zip(start, lane_start):
+            assert torch.equal(got, want[b]), b
+        if check == "residuals":
+            out = sp.residuals(x[b], y[b], z[b])
+        else:
+            out = (sp.certificate(dy[b]),)
+        for k, (got, want) in enumerate(zip(out, lane_out)):
+            assert got.dim() == 0 and torch.equal(got, want[b]), f"{b} output {k}"
 
 
 # -- the control step -----------------------------------------------------------
