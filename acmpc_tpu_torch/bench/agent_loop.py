@@ -73,6 +73,7 @@ from acmpc_tpu_torch.localise.track_map import TrackMap, load_track_map
 from acmpc_tpu_torch.ops import admm_chunk as chunk_ops
 from acmpc_tpu_torch.ops import graph_loop
 from acmpc_tpu_torch.ops import jpeg_round_trip as jpeg_ops
+from acmpc_tpu_torch.ops import ruiz as ruiz_ops
 from acmpc_tpu_torch.ops import track_chain as chain_ops
 from acmpc_tpu_torch.perception.camera import CameraInfo
 from acmpc_tpu_torch.runtime.agent import Agent
@@ -146,7 +147,7 @@ def _launches() -> dict:
     graph_loop.settle_launches()  # the replays' loop-body launches
     counters = (
         chunk_ops.admm_chunk.launches, chain_ops.chain_edges.launches, graph_loop.device_while.launches,
-        jpeg_ops.jpeg_round_trip.launches,
+        jpeg_ops.jpeg_round_trip.launches, ruiz_ops.ruiz_equilibrate.launches,
     )
     return dict(sum((collections.Counter(c) for c in counters), collections.Counter()))
 
@@ -157,6 +158,7 @@ def _clear_launches() -> None:
     chain_ops.chain_edges.launches.clear()
     graph_loop.device_while.launches.clear()
     jpeg_ops.jpeg_round_trip.launches.clear()
+    ruiz_ops.ruiz_equilibrate.launches.clear()
 
 
 def _jpeg_fails(launches: dict, camera: bool) -> list:

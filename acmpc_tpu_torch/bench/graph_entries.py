@@ -58,6 +58,7 @@ from acmpc_tpu_torch.mpc.spatial_mpc import MPCDiagnostics, MPCState, SpatialMPC
 from acmpc_tpu_torch.ops import graph_loop
 from acmpc_tpu_torch.ops.admm_chunk import CLUSTER_BOX, admm_chunk
 from acmpc_tpu_torch.ops.jpeg_round_trip import jpeg_round_trip, jpeg_round_trip_reference
+from acmpc_tpu_torch.ops.ruiz import kernel_name, plan_ruiz, ruiz_equilibrate
 from acmpc_tpu_torch.ops.track_chain import chain_edges
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
@@ -133,13 +134,17 @@ def clear_launches() -> None:
     graph_loop.settle_launches()
     admm_chunk.launches.clear()
     chain_edges.launches.clear()
+    ruiz_equilibrate.launches.clear()
     graph_loop.device_while.launches.clear()
 
 
 def counted_launches() -> dict:
     """The launches counted since :func:`clear_launches`, by kernel."""
     graph_loop.settle_launches()
-    counts = {**admm_chunk.launches, **chain_edges.launches, **graph_loop.device_while.launches}
+    counts = {
+        **admm_chunk.launches, **chain_edges.launches, **ruiz_equilibrate.launches,
+        **graph_loop.device_while.launches,
+    }
     return {name: n for name, n in counts.items() if n}
 
 
@@ -175,12 +180,19 @@ def compare_loops(mode: str, n_steps: int = STEPS, device="cuda") -> dict:
     diags = [r[1] for r in runs["captured"]]
     iterations = [int(d.control_iterations) for d in diags]
     chunks = [it // mpc.admm.check_every for it in iterations]
-    # every chunk a launch of the cluster kernel; the captured run's first
-    # step also ran once eagerly (the capture's warm-up), and its loop
-    # kernel runs once a step on entry and once a chunk
+    # every chunk a launch of the cluster kernel and every step one of the
+    # Ruiz kernel; the captured run's first step also ran once eagerly
+    # (the capture's warm-up), and its loop kernel runs once a step on
+    # entry and once a chunk
+    start = mpc.initial_state()
+    ruiz = kernel_name(plan_ruiz(start.qp_x.shape[-1], start.qp_y.shape[-1], 1))
     expected = {
-        "eager": {CLUSTER_BOX: sum(chunks)},
-        "captured": {CLUSTER_BOX: sum(chunks) + chunks[0], graph_loop.SET_CONDITION: n_steps + sum(chunks)},
+        "eager": {CLUSTER_BOX: sum(chunks), ruiz: n_steps},
+        "captured": {
+            CLUSTER_BOX: sum(chunks) + chunks[0],
+            ruiz: n_steps + 1,
+            graph_loop.SET_CONDITION: n_steps + sum(chunks),
+        },
     }
     status = [int(d.control_status) for d in diags]
     solved = [bool(r[0].solved) for r in runs["captured"]]

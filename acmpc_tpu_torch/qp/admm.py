@@ -9,9 +9,10 @@ of the KKT x-update matrix, then chunks of relaxed ADMM iterations with
 residual checks, adaptive rho, a divergence guard and a primal
 infeasibility certificate between chunks.
 
-Every iteration chunk goes through ``ops/admm_chunk.py`` (the CUDA kernel
-on the card, its plain PyTorch version on the CPU), also for a single
-scenario. A single scenario with a fixed rho runs its chunk loop through
+Ruiz scaling goes through ``ops/ruiz.py`` and every iteration chunk
+through ``ops/admm_chunk.py`` (a CUDA kernel on the card, its plain
+PyTorch version on the CPU), also for a single scenario. A single
+scenario with a fixed rho runs its chunk loop through
 ``ops/graph_loop.device_while``: eagerly one host read of the ``done``
 flag per chunk, under a CUDA graph capture (``SpatialMPC.
 jitted_get_control``) one WHILE node that the card runs with no host
@@ -45,11 +46,12 @@ import torch
 
 from acmpc_tpu_torch.ops.admm_chunk import admm_chunk
 from acmpc_tpu_torch.ops.graph_loop import device_while
+from acmpc_tpu_torch.ops.ruiz import _inf_norm, ruiz_equilibrate
+# the plain version keeps the JAX package's name (acmpc_tpu/qp/admm.py)
+from acmpc_tpu_torch.ops.ruiz import ruiz_equilibrate_reference as _ruiz_equilibrate  # noqa: F401
 from acmpc_tpu_torch.utils.monitor import MONITOR
 
 _INF = 1e30  # bounds with |value| >= _INF/1e4 are treated as loose
-_MIN_SCALING = 1e-4
-_MAX_SCALING = 1e4
 
 STATUS_MAX_ITER = 0
 STATUS_SOLVED = 1
@@ -101,39 +103,6 @@ class QPSolution:
         return (self.status == STATUS_SOLVED) | (
             self.status == STATUS_SOLVED_INACCURATE
         )
-
-
-def _inf_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    return torch.amax(torch.abs(x), dim=dim)
-
-
-def _ruiz_equilibrate(P, q, A, n_iters):
-    """Modified Ruiz equilibration of the KKT matrix [[P, A'], [A, 0]] plus
-    cost normalisation, batched over leading dimensions. Returns scaled
-    (P, q, A) and scalings (c, d, e): P_s = c D P D, q_s = c D q,
-    A_s = E A D."""
-    d = torch.ones_like(q)
-    e = torch.ones_like(A[..., :, 0])
-    c = torch.ones_like(q[..., 0])
-    for _ in range(n_iters):
-        col_norm = torch.maximum(_inf_norm(P, dim=-2), _inf_norm(A, dim=-2))
-        row_norm = _inf_norm(A, dim=-1)
-        dd = 1.0 / torch.sqrt(torch.clamp(col_norm, _MIN_SCALING, _MAX_SCALING))
-        ee = 1.0 / torch.sqrt(torch.clamp(row_norm, _MIN_SCALING, _MAX_SCALING))
-        P = P * dd[..., :, None] * dd[..., None, :]
-        q = q * dd
-        A = A * ee[..., :, None] * dd[..., None, :]
-        d = d * dd
-        e = e * ee
-        # cost normalisation (OSQP sec. 5.1)
-        p_cols = torch.mean(_inf_norm(P, dim=-2), dim=-1)
-        g = 1.0 / torch.clamp(
-            torch.maximum(p_cols, _inf_norm(q)), _MIN_SCALING, _MAX_SCALING
-        )
-        P = P * g[..., None, None]
-        q = q * g[..., None]
-        c = c * g
-    return P, q, A, c, d, e
 
 
 def _rho_vector(rho, l, u):
@@ -378,7 +347,9 @@ def _scaled_problem(P, q, A, l, u, cfg, x0, y0, box):
     l = torch.clamp(l, -_INF, _INF)
     u = torch.clamp(u, -_INF, _INF)
 
-    Ps, qs, As, c, d, e = _ruiz_equilibrate(P, q, A, cfg.scaling_iters)
+    Ps, qs, As, c, d, e = ruiz_equilibrate(
+        P.contiguous(), q.contiguous(), A.contiguous(), cfg.scaling_iters
+    )
     ls = e * l
     us = e * u
     As = As.contiguous()

@@ -10,11 +10,12 @@ Phases, each printing one line:
   1. device: card name and power limit (nvidia-smi), torch/CUDA versions,
      TF32 flags (must be off), CUDA 12.4 or later in PyTorch's build and
      the driver (conditional WHILE nodes);
-  2. build: compiles the four kernel sources (csrc/admm_chunk.cu, the
+  2. build: compiles the five kernel sources (csrc/admm_chunk.cu, the
      cluster kernel; csrc/admm_chunk_split.cu, the split kernel;
-     csrc/track_chain_edges.cu, the fused chain-edges kernel; and
+     csrc/track_chain_edges.cu, the fused chain-edges kernel;
      csrc/graph_loop.cu, the device loop's condition kernel, which
-     checks for CUDA 12.4) side by side with nvcc into
+     checks for CUDA 12.4; and csrc/ruiz_equilibrate.cu, Ruiz scaling)
+     side by side with nvcc into
      build/torch_kernels/, and prints what ptxas reports of each kernel
      (registers, spills);
   3. kernel: each variant against the plain PyTorch version on random
@@ -40,7 +41,13 @@ Phases, each printing one line:
      the plain version's, both bounds (the dense operator's and the box
      block's), both operators' bytes, the dense kernel's ms on the dense
      operator of the same QP, and the other cluster sizes; every box
-     layout against the library's, with the clusters the card holds;
+     layout against the library's, with the clusters the card holds.
+     The Ruiz kernel (ops/ruiz.py) on the main path's QPs at horizon 50
+     (B 1, 256) and 100 (B 1), 5 passes, and the 1,953-point raceline
+     (B 1, streamed), 10 passes: one launch, within 1e-5 relative of the
+     plain version, ms, bound and the plain version's ms;
+     its layouts against the library's (every phase that counts launches
+     with ``_counted`` also wants one Ruiz launch a solve);
   4. main path: monza racing config, horizon 50, B = 256 windows of a
      difficulty ramp through ``SpatialMPC.batched_get_control_fused``:
      one cold step with converged-scenario skipping on, then five
@@ -446,6 +453,31 @@ def chunk_bound(
     return 1e3 * max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops else "operations")
 
 
+def ruiz_bound_ms(n: int, m: int, batch: int) -> float:
+    """Least time of Ruiz scaling on an H100: P and A read once and P_s
+    and A_s written once (and the vectors)."""
+    n_bytes = 4 * batch * (2 * (n * n + m * n) + 4 * n + m + 1)
+    return 1e3 * n_bytes / HBM_BYTES_PER_S
+
+
+def rel_err(got, want) -> float:
+    """Largest |got - want| / |want| over a tuple of outputs; inf where a
+    zero or a non-finite value differs."""
+    import torch
+
+    worst = 0.0
+    for g, w in zip(got, want):
+        if not bool(torch.equal(torch.isfinite(g), torch.isfinite(w))):
+            return float("inf")
+        diff = (g - w).abs()
+        zero = w == 0
+        if bool((diff[zero] != 0).any()):
+            return float("inf")
+        if bool((~zero).any()):
+            worst = max(worst, float((diff[~zero] / w[~zero].abs()).max()))
+    return worst
+
+
 def random_box_qps(batch: int, n: int, m: int, seed: int, device):
     """B random well-posed box QPs (P, q, A, l, u) at the true shapes:
     P = M M'/n + I/2, A (m, n) with every 17th row an equality; and the
@@ -582,22 +614,23 @@ def phase_build() -> dict:
 
     import acmpc_tpu_torch.ops.admm_chunk as ops
     import acmpc_tpu_torch.ops.graph_loop as graph_loop
+    import acmpc_tpu_torch.ops.ruiz as ruiz
     import acmpc_tpu_torch.ops.track_chain as chain
     from acmpc_tpu_torch.ops.cuda_build import BUILD_DIR
 
     dev = torch.cuda.current_device()
     t0 = time.perf_counter()
     # every source compiles at once: the chunk kernels' two, the chain
-    # edges', the graph loop's
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    # edges', the graph loop's, the Ruiz kernel's
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         builds = [
             pool.submit(f, dev)
-            for f in (ops._libraries, chain._edges_library, graph_loop._library)
+            for f in (ops._libraries, chain._edges_library, graph_loop._library, ruiz._library)
         ]
         for done in builds:
             done.result()
     info = {
-        "sources": sorted([*ops.SOURCES.values(), chain.EDGES_SOURCE, graph_loop.SOURCE]),
+        "sources": sorted([*ops.SOURCES.values(), chain.EDGES_SOURCE, graph_loop.SOURCE, ruiz.SOURCE]),
         "build_s": time.perf_counter() - t0,
     }
     # what ptxas said of each kernel built in this run
@@ -755,8 +788,67 @@ def phase_kernel() -> dict:
                             row["ms_by_C"][p.cluster] = time_cuda_ms(lambda: run(p), reps=20)
                 results[key] = row
     results.update(_box_chunks())
+    results["ruiz"] = _ruiz_kernel(dev)
     emit("phase 3 kernel vs plain", {"n_iters": N_ITERS, **results})
     return results
+
+
+# the Ruiz kernel in phase 3: the main path's shapes and batches at the
+# MPC's passes (every controller's scaling_iters), and the 1,953-point
+# raceline (the streamed plan) at the raceline's 10, held to the plain
+# version: products, square roots and maxima round alike, the mean over n
+# sums in another order and divides where PyTorch's CUDA mean multiplies
+# by a rounded 1/n (tests/test_torch_cuda.py's RUIZ_RTOL)
+RUIZ_SHAPES = ((H50, 1, 5), (H50, BATCH, 5), (H100, 1, 5), ((1953, 1953), 1, 10))
+RUIZ_RTOL = 1e-5
+
+
+def _ruiz_kernel(dev) -> dict:
+    """The Ruiz kernel (``ops/ruiz.py``) on the main path's QPs
+    (``box_qps``) at horizon 50 (B 1, 256) and horizon 100 (B 1), and on
+    the 1,953-point raceline's first QP (B 1, streamed): one launch of the
+    planned kernel a call, its largest relative difference from the plain
+    version, ms, the plain version's ms and the bound (P and A read once,
+    P_s and A_s written once); the wrapper's layout against the library's
+    at every cluster size of both plans at these shapes and the 586-point
+    raceline's."""
+    import torch
+
+    import acmpc_tpu_torch.ops.ruiz as ruiz
+
+    lib = ruiz._library(dev)
+    for n, m in (H50, H100, (586, 586), (1953, 1953)):
+        for C in range(1, ruiz.MAX_CLUSTER + 1):
+            for resident in (True, False):
+                if lib.ruiz_equilibrate_smem_bytes(n, m, C, int(resident)) != ruiz.smem_bytes(n, m, C, resident):
+                    raise RuntimeError(f"n={n}, m={m}, C={C}: the wrapper's Ruiz layout is not the kernel's")
+    out = {}
+    for (n, m), batch, passes in RUIZ_SHAPES:
+        P, q, A, _, _ = (t.contiguous() for t in box_qps(n, m, batch))
+        plan = ruiz.plan_ruiz(n, m, batch)
+        name = ruiz.kernel_name(plan)
+        want = ruiz.ruiz_equilibrate_reference(P, q, A, passes)
+        ruiz.ruiz_equilibrate.launches.clear()
+        got = ruiz.ruiz_equilibrate(P, q, A, passes)
+        torch.cuda.synchronize()
+        if dict(ruiz.ruiz_equilibrate.launches) != {name: 1}:
+            raise RuntimeError(f"Ruiz n={n} B={batch}: expected one launch of {name}, got {dict(ruiz.ruiz_equilibrate.launches)}")
+        err = rel_err(got, want)
+        if not err <= RUIZ_RTOL:
+            raise RuntimeError(f"Ruiz n={n} B={batch}: the kernel is {err} from the plain version (> {RUIZ_RTOL})")
+        out[f"n{n}_B{batch}"] = {
+            "kernel": name,
+            "C": plan.cluster,
+            "passes": passes,
+            "max_rel_err": err,
+            "ms": time_cuda_ms(lambda: ruiz.ruiz_equilibrate(P, q, A, passes), reps=20),
+            "plain_ms": time_cuda_ms(lambda: ruiz.ruiz_equilibrate_reference(P, q, A, passes), reps=5),
+            "bound_ms": ruiz_bound_ms(n, m, batch),
+            "bound_by": "bytes",
+        }
+    if out["n1953_B1"]["kernel"] != ruiz.STREAMED:
+        raise RuntimeError(f"the 1,953-point raceline took {out['n1953_B1']['kernel']}, not {ruiz.STREAMED}")
+    return out
 
 
 # the box block's shapes and batches in phase 3, and the cluster sizes
@@ -1139,11 +1231,12 @@ def _counted(fn):
     from acmpc_tpu_torch.ops import graph_loop
     from acmpc_tpu_torch.ops.admm_chunk import admm_chunk
     from acmpc_tpu_torch.ops.jpeg_round_trip import jpeg_round_trip
+    from acmpc_tpu_torch.ops.ruiz import ruiz_equilibrate
     from acmpc_tpu_torch.ops.track_chain import chain_edges
 
     counters = (
         admm_chunk.launches, chain_edges.launches, graph_loop.device_while.launches,
-        jpeg_round_trip.launches,
+        jpeg_round_trip.launches, ruiz_equilibrate.launches,
     )
     graph_loop.settle_launches()  # the replays' loop bodies, before the clear
     for counter in counters:
@@ -1165,13 +1258,21 @@ def _finite(t) -> bool:
     return bool(torch.isfinite(t.float()).all())
 
 
-def _check_closed_loop(label: str, n_steps: int, launches: dict, rate: float, least: float):
-    """One cluster launch per closed-loop step (one RTI chunk per solve)
-    and a solve success of at least ``least``."""
+def _per_step(n_steps: int) -> dict:
+    """The launches of ``n_steps`` closed-loop steps as ``_counted`` counts
+    them: one cluster chunk (one RTI chunk a solve) and one Ruiz scaling
+    a step."""
     from acmpc_tpu_torch.ops.admm_chunk import CLUSTER_BOX
+    from acmpc_tpu_torch.ops.ruiz import RESIDENT
 
-    if launches != {CLUSTER_BOX: n_steps}:
-        raise RuntimeError(f"{label}: expected {n_steps} launches of {CLUSTER_BOX}, got {launches}")
+    return {CLUSTER_BOX: n_steps, RESIDENT: n_steps}
+
+
+def _check_closed_loop(label: str, want: dict, launches: dict, rate: float, least: float):
+    """The closed loop's launches are ``want`` and its solve success is at
+    least ``least``."""
+    if launches != want:
+        raise RuntimeError(f"{label}: expected launches {want}, got {launches}")
     if rate < least:
         raise RuntimeError(f"{label}: solve success {rate} < {least}")
 
@@ -1210,7 +1311,7 @@ def phase_lap_sweep() -> dict:
 
     (metrics, wall), sweep_launches = _counted(timed)
     summary = sweep.summarise(metrics, SWEEP_STEPS)
-    _check_closed_loop("sweep", SWEEP_STEPS, sweep_launches, summary["solve_success_rate"], 0.99)
+    _check_closed_loop("sweep", _per_step(SWEEP_STEPS), sweep_launches, summary["solve_success_rate"], 0.99)
     for k, v in metrics.items():
         if v.shape != (SWEEP_BATCH, SWEEP_STEPS) or not _finite(v):
             raise RuntimeError(f"sweep: metric {k} of shape {tuple(v.shape)} or not finite")
@@ -1249,14 +1350,14 @@ def phase_lap_sweep() -> dict:
     raceline, raceline_launches = _counted(lambda: run_laps(rsweep, rgrid, dt, RACELINE_STEPS))
     if raceline["total_solves"] != RACELINE_BATCH * RACELINE_STEPS:
         raise RuntimeError(f"raceline: {raceline['total_solves']} solves")
-    _check_closed_loop("raceline", RACELINE_STEPS, raceline_launches, raceline["solve_success_rate"], 0.9)
+    _check_closed_loop("raceline", _per_step(RACELINE_STEPS), raceline_launches, raceline["solve_success_rate"], 0.9)
 
     # the full-lap tool's loop at B = 32
     sweep.run_fused(grid_of(LAP_BATCH), 1)  # untimed: the step's graph at this batch
     laps, lap_launches = _counted(lambda: run_laps(sweep, grid_of(LAP_BATCH), dt, LAP_STEPS))
     if laps["sequential_solves_per_scenario"] != LAP_STEPS:
         raise RuntimeError(f"full lap: {laps['sequential_solves_per_scenario']} sequential solves")
-    _check_closed_loop("full lap", LAP_STEPS, lap_launches, laps["solve_success_rate"], 0.99)
+    _check_closed_loop("full lap", _per_step(LAP_STEPS), lap_launches, laps["solve_success_rate"], 0.99)
 
     launches = collections.Counter()
     for counts in (sweep_launches, raceline_launches, lap_launches):
@@ -1297,6 +1398,7 @@ def phase_multi_track() -> dict:
     from acmpc_tpu_torch.mpc.multi_track import MultiTrackMPC
     from acmpc_tpu_torch.mpc.spatial_mpc import SpatialMPC
     from acmpc_tpu_torch.ops.admm_chunk import CLUSTER_BOX
+    from acmpc_tpu_torch.ops.ruiz import RESIDENT
 
     agent = [load_config(ROOT / "configs" / f"{t}.yaml") for t in TRACKS]
     configs = [dataclasses.replace(c.racing_control, horizon=HORIZON) for c in agent]
@@ -1348,9 +1450,13 @@ def phase_multi_track() -> dict:
             raise RuntimeError(f"grid step {i}: {int((~s.solved).sum())} of {S * len(TRACKS)} unsolved")
         if not _finite(s.projected_control):
             raise RuntimeError(f"grid step {i}: commands not finite")
-    for label, counts in (("fixture", fixture_launches), ("grid", grid_launches)):
-        if counts.get(CLUSTER_BOX, 0) == 0 or set(counts) != {CLUSTER_BOX}:
-            raise RuntimeError(f"multi-track {label}: expected launches of {CLUSTER_BOX}, got {counts}")
+    # the box-block cluster kernel only, and the Ruiz kernel once a batched
+    # solve (the fixture's one; the grid's cold and five warm steps)
+    for label, counts, solves in (("fixture", fixture_launches, 1), ("grid", grid_launches, 6)):
+        if counts.get(CLUSTER_BOX, 0) == 0 or set(counts) != {CLUSTER_BOX, RESIDENT} or counts[RESIDENT] != solves:
+            raise RuntimeError(
+                f"multi-track {label}: expected launches of {CLUSTER_BOX} and {solves} of {RESIDENT}, got {counts}"
+            )
     warm_ms = 1e3 * float(np.median(step_s))
     launches = collections.Counter(fixture_launches)
     launches.update(grid_launches)
@@ -1801,6 +1907,7 @@ def _racelines() -> dict:
     """Phase 13 (a): every fixture case on the card against JAX's alpha."""
     import torch
 
+    from acmpc_tpu_torch.ops import ruiz
     from acmpc_tpu_torch.ops.admm_chunk import kernel_name, plan_chunk
     from acmpc_tpu_torch.utils.raceline import solve_raceline
 
@@ -1844,11 +1951,15 @@ def _racelines() -> dict:
         }
         if not all(bool(sol.solved) for sol in r.solutions) or not np.isfinite(alpha).all():
             raise RuntimeError(f"raceline {key}: a QP unsolved or alpha not finite: {row}")
-        # the box block: a cluster up to 942 points, the split kernel at 1,953
+        # the box block: a cluster up to 942 points, the split kernel at
+        # 1,953; the Ruiz kernel once a QP (streamed at 1,953 points)
         n = len(centre)
-        name = kernel_name(plan_chunk(n, n, 1, n), False)
-        if counts != {name: sum(iterations) // 25}:
-            raise RuntimeError(f"raceline {key}: expected {sum(iterations) // 25} launches of {name} only: {counts}")
+        want_counts = {
+            kernel_name(plan_chunk(n, n, 1, n), False): sum(iterations) // 25,
+            ruiz.kernel_name(ruiz.plan_ruiz(n, n, 1)): len(r.solutions),
+        }
+        if counts != want_counts:
+            raise RuntimeError(f"raceline {key}: expected launches {want_counts} only: {counts}")
         if (
             err > RACELINE_ALPHA_TOL
             or row["kappa_max_abs_err"] > RACELINE_KAPPA_SHARE * row["kappa_max_abs_jax"]
@@ -2035,6 +2146,7 @@ def _parallel_ranks() -> dict:
     CLI in both of its modes."""
     from acmpc_tpu_torch.bench import pod_sweep
     from acmpc_tpu_torch.cli.launch_pod import run_two_process_smoke
+    from acmpc_tpu_torch.ops.admm_chunk import CLUSTER_BOX
 
     t0 = time.perf_counter()
     results = pod_sweep.launch(("sweep", "profiles"), PARALLEL_RANKS, DEVICE, "gloo")
@@ -2045,7 +2157,8 @@ def _parallel_ranks() -> dict:
     sweep = pod_sweep.compare("sweep", results["sweep"], one)
     n_solves = pod_sweep.SCENARIOS_PER_RANK * PARALLEL_RANKS * pod_sweep.STEPS
     for r, rank in enumerate(sweep["ranks"]):
-        _check_closed_loop(f"parallel (b) rank {r}", pod_sweep.STEPS, rank["launches"],
+        # a rank counts its chunks alone (bench/pod_sweep.py)
+        _check_closed_loop(f"parallel (b) rank {r}", {CLUSTER_BOX: pod_sweep.STEPS}, rank["launches"],
                            rank["n_solved"] / rank["n_solves"], 0.99)
         if rank["n_solves"] != n_solves:
             raise RuntimeError(f"parallel (b) rank {r}: n_solves {rank['n_solves']}, not {n_solves}")
@@ -2443,7 +2556,7 @@ def _vmapped_lap_sweep() -> dict:
     fused_wall = (fused_wall + timed(sweep.run_fused)[1]) / 2
     wall = (wall + timed(sweep.run)[1]) / 2
     summary = sweep.summarise(metrics, SWEEP_STEPS)
-    _check_closed_loop("vmapped sweep", SWEEP_STEPS, launches, summary["solve_success_rate"], 0.99)
+    _check_closed_loop("vmapped sweep", _per_step(SWEEP_STEPS), launches, summary["solve_success_rate"], 0.99)
     if not torch.equal(metrics["solved"], fused["solved"]):
         raise RuntimeError("vmapped sweep: solved flags differ from run_fused's")
     err = max(float((metrics[k] - fused[k]).abs().max()) for k in ("v", "offtrack"))
@@ -3008,6 +3121,7 @@ def kernels_line(
     need) and for the chain-edges kernel from phase 10 at 1280x736, band 4."""
     import acmpc_tpu_torch.ops.admm_chunk as ops
     import acmpc_tpu_torch.ops.jpeg_round_trip as jpeg
+    import acmpc_tpu_torch.ops.ruiz as ruiz
     import acmpc_tpu_torch.ops.track_chain as chain
 
     import acmpc_tpu_torch.ops.graph_loop as graph_loop
@@ -3078,6 +3192,30 @@ def kernels_line(
                     "library_ms": None,
                 }
                 for name in (jpeg.BLOCKS_KERNEL, jpeg.COLOUR_KERNEL)
+            ),
+            *(
+                {
+                    # Ruiz scaling, which XLA composed for the JAX package:
+                    # the resident plan at horizon 50 and B = 256 (the
+                    # sweep's), the streamed plan on the 1,953-point
+                    # raceline at 10 passes (phase 3); the largest relative
+                    # difference from the plain version
+                    "name": name,
+                    "route": "cuda",
+                    "source": f"acmpc_tpu_torch/csrc/{ruiz.SOURCE}",
+                    "replaces": "acmpc_tpu/qp/admm.py:126 (XLA)",
+                    "launches": paths.get(name, 0),
+                    "max_rel_err": row["max_rel_err"],
+                    "ms": row["ms"],
+                    "plain_ms": row["plain_ms"],
+                    "bound_ms": row["bound_ms"],
+                    "bound_by": "bytes",
+                    "library_ms": None,
+                }
+                for name, row in (
+                    (ruiz.RESIDENT, kernel["ruiz"][f"n{n50}_B{BATCH}"]),
+                    (ruiz.STREAMED, kernel["ruiz"]["n1953_B1"]),
+                )
             ),
             {
                 # the device-side chunk loop (a WHILE node's condition):

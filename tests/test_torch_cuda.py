@@ -1664,3 +1664,226 @@ def test_segformer_graph_equals_eager_on_card(cuda_device):
     assert torch.equal(graph[0], eager[0]) and torch.equal(graph[1], eager[1])
     for k in TRACK_KEYS:
         assert torch.equal(graph[2][k], eager[2][k]), k
+
+
+# -- Ruiz equilibration (ops/ruiz.py) -----------------------------------------
+
+# the kernel against the plain version: every product, square root and
+# division of the passes rounds as the plain version's and maxima are
+# exact, but the mean over n sums in another order than PyTorch's CUDA
+# reduction and divides by n where PyTorch multiplies by a rounded 1 / n
+# (an ulp or two of a pass's g), which ten passes compound: 1e-5 relative
+# on every output
+RUIZ_RTOL = 1e-5
+
+
+def _assert_ruiz_matches(got, want):
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, w, rtol=RUIZ_RTOL, atol=0)
+
+
+def _control_qp(mode, batch, device):
+    """(P, q, A) of monza's racing control (horizon 50) or its mapping
+    control (horizon 100) on ``batch`` windows of ``mixed_refs``."""
+    from acmpc_tpu_torch.bench import batch_sweep
+    from acmpc_tpu_torch.bench.graph_entries import make_mpc
+
+    mpc = make_mpc(mode, device)
+    refs = torch.as_tensor(batch_sweep.mixed_refs(mpc.horizon, batch), device=device)
+
+    def full(v, dtype=torch.float32):
+        return torch.full((batch,), v, dtype=dtype, device=device)
+
+    _, _, qp = mpc._prepare(
+        mpc.initial_state(batch), refs, full(mpc.config.constraints.v_max), full(False, torch.bool), full(0.0)
+    )
+    return qp[:3]
+
+
+def _raceline_qp(stride, device):
+    """monza's raceline QP at its first re-linearisation: 586 points at
+    the CLI's cap (``stride`` None), 1,953 at stride 6."""
+    from acmpc_tpu_torch.cli import raceline as cli
+    from acmpc_tpu_torch.localise.track_map import load_track_map
+    from acmpc_tpu_torch.utils.raceline import _unit_normals, raceline_qp
+
+    tm = load_track_map(ROOT / "data" / "maps" / "monza.npz", device="cpu")
+    centre, left = tm.centre.numpy(), tm.left.numpy()
+    centre, half = cli.corridor(centre, left, stride or cli.cap_stride(len(centre)))
+    c = torch.tensor(centre, dtype=torch.float32, device=device)
+    bound = torch.clamp(torch.tensor(half, dtype=torch.float32, device=device) - 1.0, min=0.0)
+    return raceline_qp(c, _unit_normals(c), bound, torch.zeros(len(c), device=device))[:3]
+
+
+def _ruiz_once(P, q, A, n_iters):
+    """The wrapper's outputs and the launches it counted."""
+    from acmpc_tpu_torch.ops.ruiz import ruiz_equilibrate
+
+    ruiz_equilibrate.launches.clear()
+    out = ruiz_equilibrate(P, q, A, n_iters)
+    torch.cuda.synchronize()
+    return out, dict(ruiz_equilibrate.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "mode, batch", [("racing", 1), ("racing", 32), ("racing", 256), ("mapping", 1), ("mapping", 8)]
+)
+@pytest.mark.parametrize("n_iters", [5, 10])
+def test_ruiz_kernel_matches_plain_on_control_qps_on_card(cuda_device, mode, batch, n_iters):
+    from acmpc_tpu_torch.ops.ruiz import kernel_name, plan_ruiz, ruiz_equilibrate_reference
+
+    P, q, A = _control_qp(mode, batch, cuda_device)
+    got, launches = _ruiz_once(P, q, A, n_iters)
+    assert launches == {kernel_name(plan_ruiz(q.shape[-1], A.shape[-2], batch)): 1}
+    _assert_ruiz_matches(got, ruiz_equilibrate_reference(P, q, A, n_iters))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride, variant", [(None, "resident"), (6, "streamed")])
+def test_ruiz_kernel_matches_plain_on_raceline_qps_on_card(cuda_device, stride, variant):
+    # 586 points: a cluster holds the lane; 1,953: the streamed plan
+    from acmpc_tpu_torch.ops.ruiz import ruiz_equilibrate_reference
+
+    P, q, A = _raceline_qp(stride, cuda_device)
+    got, launches = _ruiz_once(P, q, A, 10)
+    assert launches == {f"ruiz_equilibrate[{variant}]": 1}
+    _assert_ruiz_matches(got, ruiz_equilibrate_reference(P, q, A, 10))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["resident", "streamed"])
+@pytest.mark.parametrize("n_iters", [0, 1, 2, 10])
+def test_ruiz_kernel_on_dense_random_qps_on_card(cuda_device, variant, n_iters):
+    # a dense A (no box block), m != n, entries over several decades; each
+    # plan at every cluster size that holds it
+    from acmpc_tpu_torch.ops.ruiz import _launch, ruiz_equilibrate_reference, ruiz_plan, smem_bytes
+
+    rng = np.random.default_rng(23 + n_iters)
+    n, m, batch = 37, 61, 5
+    Mx = rng.normal(size=(batch, n, n)) * 10.0 ** rng.uniform(-2, 2, size=(batch, 1, n))
+    P = Mx @ Mx.transpose(0, 2, 1) / n + 0.5 * np.eye(n)
+    q = rng.normal(size=(batch, n)) * 10.0 ** rng.uniform(-3, 3, size=(batch, n))
+    A = rng.normal(size=(batch, m, n)) * 10.0 ** rng.uniform(-2, 2, size=(batch, m, 1))
+    P, q, A = (torch.as_tensor(a, dtype=torch.float32, device=cuda_device) for a in (P, q, A))
+    want = ruiz_equilibrate_reference(P, q, A, n_iters)
+    for C in (1, 2, 3, 8, 16):
+        if variant == "resident" and smem_bytes(n, m, C, True) > 232_448:
+            continue
+        _assert_ruiz_matches(_launch(ruiz_plan(n, m, C, variant == "resident"), P, q, A, n_iters), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_ruiz_kernel_on_unaligned_lane_bases_on_card(cuda_device, offset):
+    # each tensor ``offset`` floats into its allocation: the lanes' rows
+    # start off 16-byte alignment, as do the CTAs' slabs
+    from acmpc_tpu_torch.ops.ruiz import ruiz_equilibrate_reference
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+        return flat[offset:].view(t.shape).copy_(t)
+
+    P, q, A = (shifted(t) for t in _control_qp("racing", 3, cuda_device))
+    assert P.data_ptr() % 16 != 0
+    got, launches = _ruiz_once(P, q, A, 5)
+    assert launches == {"ruiz_equilibrate[resident]": 1}
+    _assert_ruiz_matches(got, ruiz_equilibrate_reference(P, q, A, 5))
+
+
+@pytest.mark.cuda
+def test_ruiz_kernel_on_one_qp_on_card(cuda_device):
+    # one QP (no lane axis) goes as a batch of one
+    from acmpc_tpu_torch.ops.ruiz import ruiz_equilibrate_reference
+
+    P, q, A = (t[0] for t in _control_qp("racing", 1, cuda_device))
+    got, launches = _ruiz_once(P, q, A, 5)
+    assert launches == {"ruiz_equilibrate[resident]": 1}
+    assert got[3].shape == () and got[0].shape == P.shape
+    _assert_ruiz_matches(got, ruiz_equilibrate_reference(P, q, A, 5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["dtype", "contiguity", "shape", "device"])
+def test_ruiz_kernel_refuses_what_it_does_not_take_on_card(cuda_device, fault):
+    from acmpc_tpu_torch.ops.ruiz import ruiz_equilibrate
+
+    P, q, A = _control_qp("racing", 2, cuda_device)
+    if fault == "dtype":
+        P = P.double()
+    elif fault == "contiguity":
+        A = A.transpose(-1, -2).contiguous().transpose(-1, -2)
+    elif fault == "shape":
+        A = A[:, :, :-1].contiguous()
+    else:
+        q = q.cpu()
+    ruiz_equilibrate.launches.clear()
+    with pytest.raises((TypeError, ValueError)):
+        ruiz_equilibrate(P, q, A, 5)
+    assert not ruiz_equilibrate.launches
+
+
+def _golden_mpc(track, device):
+    """The track's racing control cut to horizon 50 (the golden fixture's)."""
+    from acmpc_tpu_torch.config import load_config
+    from acmpc_tpu_torch.dynamics import SpatialBicycleModel
+    from acmpc_tpu_torch.mpc.spatial_mpc import SpatialMPC
+
+    cfg = load_config(ROOT / "configs" / f"{track}.yaml")
+    control = dataclasses.replace(cfg.racing_control, horizon=50)
+    model = SpatialBicycleModel(
+        vehicle=cfg.vehicle, min_velocity=control.constraints.v_min, max_velocity=control.constraints.v_max
+    )
+    return SpatialMPC(control, model, device=device)
+
+
+GOLDEN_TRACKS = ("monza", "spa", "silverstone", "nordschleife", "vallelunga", "bathurst", "yas_marina")
+
+
+@pytest.mark.cuda
+def test_golden_windows_through_the_captured_step_take_the_kernel_on_card(cuda_device, monkeypatch):
+    """The 35 golden windows through ``jitted_get_control``: one Ruiz
+    launch a solve (the replays and each capture's eager warm-up), the
+    same statuses and iteration counts as the same graphs on the plain
+    scaling, and the fixture's gate of 5e-3."""
+    import acmpc_tpu_torch.qp.admm as tadmm
+    from acmpc_tpu_torch.geometry.tracks import battery
+    from acmpc_tpu_torch.ops.ruiz import RESIDENT, ruiz_equilibrate, ruiz_equilibrate_reference
+
+    golden = np.load(ROOT / "tests" / "fixtures" / "golden_controls.npz")
+    windows = battery(50)
+
+    def run():
+        out = {}
+        for track in GOLDEN_TRACKS:
+            mpc = _golden_mpc(track, cuda_device)
+            v_cap = min(30.0, mpc.config.unlocalised_max_speed or 30.0)
+            for name, ref in windows.items():
+                out[f"{track}/{name}"] = mpc.jitted_get_control(mpc.initial_state(), ref, v_cap)
+        torch.cuda.synchronize()
+        return out
+
+    settle_launches()
+    ruiz_equilibrate.launches.clear()
+    kernel = run()
+    settle_launches()
+    assert dict(ruiz_equilibrate.launches) == {RESIDENT: len(GOLDEN_TRACKS) * (len(windows) + 1)}
+    monkeypatch.setattr(tadmm, "ruiz_equilibrate", ruiz_equilibrate_reference)
+    plain = run()
+    settle_launches()
+    assert dict(ruiz_equilibrate.launches) == {RESIDENT: len(GOLDEN_TRACKS) * (len(windows) + 1)}
+    assert len(kernel) == 35
+    for key, (state, diags) in kernel.items():
+        p_state, p_diags = plain[key]
+        assert int(diags.control_status) == int(p_diags.control_status), key
+        assert int(diags.control_iterations) == int(p_diags.control_iterations), key
+        assert bool(state.solved) == bool(golden[f"{key}/solved"]), key
+        if bool(state.solved):
+            for field in ("projected_control", "cum_time"):
+                np.testing.assert_allclose(
+                    getattr(state, field).cpu().numpy(), golden[f"{key}/{field}"], rtol=5e-3, atol=5e-3, err_msg=key
+                )
