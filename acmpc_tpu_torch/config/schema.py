@@ -47,8 +47,9 @@ class PerceptionConfig:
     vertical_fov_deg: float
     camera_position: tuple
     camera_pitch_deg: float
-    # the segmenter (perception/segmentation.ARCHITECTURES); the port's
-    # own key: the JAX package runs the FPN alone
+    # the segmenter (perception/segmentation.ARCHITECTURES: fpn_resnet18,
+    # segformer_b2, mask2former_r50); the port's own key: the JAX package
+    # runs the FPN alone
     architecture: str = "fpn_resnet18"
 
     @classmethod

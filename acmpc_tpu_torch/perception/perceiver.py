@@ -11,11 +11,12 @@ the chain-edges kernel in it.
 
 The pipelines return ``(drivable, semantics, tracks)`` as a
 :class:`PipelineOutput`, which also holds the segmenter's own logits
-(``logits``; ``TrackSegmenter._apply``). ``_run_pipeline`` always hands
-them out; the captured pipelines only where the perceiver was built
-with ``keep_logits=True``, as a graph output like the others, so that a
-caller can judge what the timed path produced. Without it the graphs
-neither keep nor copy them.
+(``logits``; ``TrackSegmenter._apply``; for Mask2Former its final class
+and mask logits and its nine attention masks). ``_run_pipeline`` always
+hands them out; the captured pipelines only where the perceiver was
+built with ``keep_logits=True``, as graph outputs like the others, so
+that a caller can judge what the timed path produced. Without it the
+graphs neither keep nor copy them.
 
 ``perceive`` adds the steps kept from the original stack: the JPEG round
 trip that matches the training distribution (OpenCV's default encode and
@@ -51,12 +52,18 @@ from acmpc_tpu_torch.utils.monitor import MONITOR
 
 class PipelineOutput(tuple):
     """``(drivable, semantics, tracks)``, with the segmenter's logits as
-    ``logits`` (None where a captured pipeline does not keep them)."""
+    ``logits`` (None where a captured pipeline does not keep them): one
+    tensor (the FPN's, SegFormer's), or a tuple of them (Mask2Former's
+    class logits, mask logits and nine attention masks)."""
 
     def __new__(cls, drivable, semantics, tracks, logits):
         out = super().__new__(cls, (drivable, semantics, tracks))
         out.logits = logits
         return out
+
+
+def _as_list(logits) -> list:
+    return list(logits) if isinstance(logits, tuple) else [logits]
 
 
 class Perceiver:
@@ -79,7 +86,7 @@ class Perceiver:
         def flat(image):
             out = self._run_pipeline(image)
             drivable, semantics, tracks = out
-            logits = [out.logits] if keep_logits else []
+            logits = _as_list(out.logits) if keep_logits else []
             return [drivable, semantics, *(tracks[k] for k in TRACK_KEYS), *logits]
 
         def raw(image):
@@ -93,7 +100,9 @@ class Perceiver:
             def pipeline(image: torch.Tensor):
                 out = graphs(image)
                 tracks = dict(zip(TRACK_KEYS, out[2:2 + len(TRACK_KEYS)]))
-                return PipelineOutput(out[0], out[1], tracks, out[-1] if keep_logits else None)
+                rest = out[2 + len(TRACK_KEYS):]
+                logits = (rest[0] if len(rest) == 1 else tuple(rest)) if keep_logits else None
+                return PipelineOutput(out[0], out[1], tracks, logits)
 
             pipeline.graphs = graphs
             return pipeline

@@ -252,6 +252,26 @@ Phases, each printing one line:
      under ``perceiver.segment`` and a ``segmenter.forward:segformer_b2``
      count a frame. The kernels line gains the attention's row (route
      ``library``).
+  19. Mask2Former-R50 (``models/mask2former.py``) as the perceiver's
+     segmenter at 1280x736 bf16, with the plain reference's seeded
+     random weights (``perfbench/reference/mask2former.py``:
+     ``random_state``, the heads set from two sim frames, ``fit_heads``):
+     ``csrc/ms_deform_attn.cu`` against its plain version at the
+     published shapes (19,320 queries, 3 levels, 4 points), timed beside
+     the plain version, the grid_sample composition and its bound;
+     ``_raw_pipeline`` against eager on 6 sim frames, every output and
+     the class logits, mask logits, encoder output and attention masks
+     bit-equal, and six kernel launches a frame; the class, mask and
+     encoder gaps against the plain reference (float32, TF32 off, fed
+     the program's attention masks) within the benchmark cell's limits,
+     and its float8 control outside one; each backend of
+     ``F.scaled_dot_product_attention`` timed at the masked
+     cross-attention's three key lengths; ``perceive`` a frame, the
+     captured pipeline, the segmenter eager; a profile: the kernels a
+     frame, the sampling kernel's time and its roofline share; with the
+     monitor on, the Mask2Former spans under ``perceiver.segment`` and a
+     ``segmenter.forward:mask2former_r50`` count a frame. The kernels
+     line gains the ``ms_deform_attn`` row.
 Then the kernels line, the card line and, last, the result line. Any
 failure raises and the exit code is not 0. Without a CUDA device it
 exits with code 2 and prints no result.
@@ -401,6 +421,15 @@ COMPILED_TIMED = 250
 SEGFORMER_FRAMES = 8
 SEGFORMER_SEED = 2**31 + 2020
 SEGFORMER_TIMED = 50
+MASK2FORMER_FRAMES = 6
+MASK2FORMER_SEED = 2**31 + 2024
+MASK2FORMER_TIMED = 50
+# the kernel against its plain version: the same float32 locations,
+# weights and taps summed in another order, each bf16 output within one
+# rounding of the larger of the two, or float32 sums' rounding where the
+# taps cancel near zero (tests/test_torch_cuda.py)
+DEFORM_RTOL = 2.0 ** -7
+DEFORM_ATOL_SHARE = 1e-5
 # a trip of the loop kernel reads the flag (1 byte) and the trip count (8)
 # and writes the count (8)
 LOOP_TRIP_BYTES = 17
@@ -3094,9 +3123,270 @@ def phase_segformer() -> dict:
     return info
 
 
+def _masked_attention_backends() -> dict:
+    """Each backend of ``F.scaled_dot_product_attention`` at Mask2Former's
+    masked cross-attention (100 queries, 8 heads of 32, a boolean mask
+    broadcast over the heads) at the three key lengths at 1280x736 in
+    bf16: device ms a call in a captured graph, None where the backend
+    refuses the mask; each backend's sum over a frame's 9 layers."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    backends = (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                SDPBackend.MATH)
+    out: dict = {}
+    for keys in (920, 3680, 14720):
+        g = torch.Generator(device=DEVICE).manual_seed(keys)
+        q = torch.randn(1, 8, 100, 32, generator=g, device=DEVICE, dtype=torch.bfloat16)
+        k = torch.randn(1, 8, keys, 32, generator=g, device=DEVICE, dtype=torch.bfloat16)
+        v = torch.randn(1, 8, keys, 32, generator=g, device=DEVICE, dtype=torch.bfloat16)
+        mask = torch.rand(1, 1, 100, keys, generator=g, device=DEVICE) < 0.5
+        mask[..., :1] = True
+        row = {}
+        for backend in backends:
+            def call(backend=backend):
+                with sdpa_kernel([backend]):
+                    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+            try:
+                row[backend.name] = _graph_ms(call)
+            except RuntimeError as err:
+                row[backend.name] = None
+                row[f"{backend.name}_refused"] = str(err).splitlines()[0][:120]
+        out[f"keys{keys}"] = row
+    frame_ms = {}
+    for b in backends:
+        per = [out[f"keys{n}"][b.name] for n in (920, 3680, 14720)]
+        frame_ms[b.name] = None if None in per else 3 * sum(per)
+    out["frame_ms"] = frame_ms
+    timed = {k: v for k, v in frame_ms.items() if v is not None}
+    out["fastest"] = min(timed, key=timed.get)
+    return out
+
+
+def _deform_kernel() -> dict:
+    """``ms_deform_attn`` against its plain version at the published shapes
+    (19,320 queries over 23x40, 46x80 and 92x160, 8 heads of 32, 4
+    points; offsets of a few cells, some whole, some far outside the
+    map): the worst difference; ms a launch (CUDA events), the plain
+    version's, the grid_sample composition's (Deformable DETR's, the
+    library's yardstick), and the bound (bytes at the HBM peak, or the
+    sampling's operations at the fp32 peak)."""
+    import torch
+    import torch.nn.functional as F
+
+    from acmpc_tpu_torch.ops import ms_deform_attn as op
+    from perfbench.metrics._peaks import FP32_FLOP_PER_S
+
+    shapes = [(23, 40), (46, 80), (92, 160)]
+    S = sum(h * w for h, w in shapes)
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    value = torch.randn(1, S, 256, device=DEVICE, generator=g).bfloat16()
+    offsets = torch.randn(1, S, 192, device=DEVICE, generator=g) * 3
+    offsets[0, ::7, ::3] = torch.round(offsets[0, ::7, ::3])
+    offsets[0, ::11, ::5] *= 40
+    offsets = offsets.bfloat16()
+    logits = torch.randn(1, S, 96, device=DEVICE, generator=g).bfloat16()
+    got = op.ms_deform_attn(value, offsets, logits, shapes).float()
+    want = op.ms_deform_attn_reference(value, offsets, logits, shapes).float()
+    torch.cuda.synchronize()
+    gap = (got - want).abs()
+    allowed = DEFORM_RTOL * torch.maximum(got.abs(), want.abs()) + DEFORM_ATOL_SHARE * want.abs().max()
+    if not bool((gap <= allowed).all()):
+        raise RuntimeError(f"ms_deform_attn differs from its plain version: {float(gap.max())}")
+
+    def composed():
+        M, D, L, P = 8, 32, 3, 4
+        loc = op.sampling_locations(offsets.view(1, S, M, L, P, 2), shapes)
+        w = torch.softmax(logits.view(1, S, M, L * P).float(), -1).view(M, S, L * P)
+        values = value.view(1, S, M, D).split([h * w_ for h, w_ in shapes], dim=1)
+        sampled = [F.grid_sample(v.flatten(2).transpose(1, 2).reshape(M, D, h, w_),
+                                 (2 * loc[:, :, :, l] - 1).transpose(1, 2).flatten(0, 1).bfloat16(),
+                                 mode="bilinear", padding_mode="zeros", align_corners=False)
+                   for l, (v, (h, w_)) in enumerate(zip(values, shapes))]
+        return (torch.stack(sampled, dim=-2).flatten(-2) * w[:, None].bfloat16()).sum(-1)
+
+    work_bytes = 2.0 * S * (256 + 192 + 96 + 256)
+    work_ops = S * 8 * 12 * 32 * 9.0
+    bound_ms = 1e3 * max(work_bytes / HBM_BYTES_PER_S, work_ops / FP32_FLOP_PER_S)
+    return {
+        "queries": S, "max_abs_err": float(gap.max()), "max_rel_err": float(gap.max() / want.abs().max()),
+        "ms": time_cuda_ms(lambda: op.ms_deform_attn(value, offsets, logits, shapes), 50),
+        "plain_ms": time_cuda_ms(lambda: op.ms_deform_attn_reference(value, offsets, logits, shapes), 5),
+        "library_ms": time_cuda_ms(composed, 20),
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if work_bytes / HBM_BYTES_PER_S >= work_ops / FP32_FLOP_PER_S else "operations",
+    }
+
+
+def phase_mask2former() -> dict:
+    """Mask2Former-R50 as the perceiver's segmenter at 1280x736 bf16: the
+    deformable sampling kernel against its plain version, the captured
+    pipeline against eager (bit-equal) and its six launches a frame, the
+    logits against the plain reference fed the program's masks and its
+    float8 control, the masked attention's backends, the frame's times,
+    its kernels and its spans."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from acmpc_tpu_torch.bench import perception_loop as loop
+    from acmpc_tpu_torch.models import mask2former as m2f
+    from acmpc_tpu_torch.ops import ms_deform_attn as op
+    from acmpc_tpu_torch.ops.graph_loop import settle_launches
+    from acmpc_tpu_torch.ops.jpeg_round_trip import jpeg_round_trip_reference
+    from acmpc_tpu_torch.perception.perceiver import Perceiver
+    from acmpc_tpu_torch.perception.tracks import TRACK_KEYS
+    from acmpc_tpu_torch.utils.monitor import MONITOR
+    from perfbench.drivers.perceive import asphalt
+    from perfbench.metrics._mask2former_flops import mask2former_flops
+    from perfbench.metrics._peaks import BF16_FLOP_PER_S, FP32_FLOP_PER_S
+    from perfbench.reference.mask2former import Mask2Former, fit_heads, random_state
+
+    t_phase = time.perf_counter()
+    limits = json.loads((ROOT / "perfbench" / "traffic" / "perceive_m2f_b1.json").read_text())
+    shape = json.loads((ROOT / "perfbench" / "configs" / "monza_racing_mask2former_r50.json").read_text())
+    info: dict = {"torch": torch.__version__, "kernel": _deform_kernel()}
+    cfg = dataclasses.replace(loop.perception_config(precision="bf16"), architecture="mask2former_r50",
+                              model_path=None)
+    centre, left, right, _ = loop.circuit()
+    host, _ = loop.sim_frames(loop.make_sim(cfg, centre, left, right), centre, MASK2FORMER_FRAMES)
+    frames = [torch.as_tensor(f, device=DEVICE) for f in host]
+    fit = [jpeg_round_trip_reference(f).cpu().numpy() for f in frames[:2]]
+    variables = fit_heads(random_state(MASK2FORMER_SEED, shape), shape, fit, [asphalt(i) for i in fit], DEVICE)
+    perc = Perceiver(cfg, variables, device=DEVICE, keep_logits=True)
+    info["frame"] = [cfg.image_height, cfg.image_width]
+
+    # (a) the captured pipeline against eager, every output and the logits;
+    # the kernel's launches a frame
+    mismatches, captured = [], []
+    for i, frame in enumerate(frames):
+        eager, graph = perc._run_pipeline(jpeg_round_trip_reference(frame)), perc._raw_pipeline(frame)
+        pairs = {"drivable": (eager[0], graph[0]), "semantics": (eager[1], graph[1]),
+                 **{f"logits{j}": ab for j, ab in enumerate(zip(eager.logits, graph.logits))},
+                 **{k: (eager[2][k], graph[2][k]) for k in TRACK_KEYS}}
+        mismatches += [f"frame {i}: {k}" for k, (a, b) in pairs.items() if not torch.equal(a, b)]
+        captured.append(graph.logits)
+    info["graph_vs_eager"] = {"frames": len(frames), "bit_equal": not mismatches, "mismatches": mismatches[:10]}
+    if mismatches:
+        raise RuntimeError(f"Mask2Former's captured pipeline differs from eager: {mismatches[:10]}")
+    settle_launches()
+    op.ms_deform_attn.launches.clear()
+    for frame in frames:
+        perc._raw_pipeline(frame)
+    settle_launches()
+    info["launches_per_frame"] = op.ms_deform_attn.launches[op.KERNEL] / len(frames)
+    if info["launches_per_frame"] != 6:
+        raise RuntimeError(f"ms_deform_attn launches a frame: {info['launches_per_frame']}")
+
+    # (b) the logits against the plain reference fed the program's masks,
+    # and its float8 control
+    ref, low = Mask2Former(variables, shape, DEVICE), Mask2Former(variables, shape, DEVICE, fp8=True)
+
+    def gap(got, want):
+        return float((got.double() - want.double()).abs().max() / want.abs().max())
+
+    gaps: dict = {k: [] for k in ("class", "mask", "encoder", "fp8_class", "fp8_mask", "fp8_encoder")}
+    released = []
+    for frame, (cls, mask, memory, *masks) in zip(frames, captured):
+        image = jpeg_round_trip_reference(frame)
+        forced = [m[0] for m in masks]
+        want, lw = ref.forward(image, forced), low.forward(image, forced)
+        for name, key, got in (("class", "class_logits", cls[0]), ("mask", "mask_logits", mask[0]),
+                               ("encoder", "memory", memory[0])):
+            gaps[name].append(gap(got, want[key]))
+            gaps[f"fp8_{name}"].append(gap(lw[key], want[key]))
+        released.append(sum(int(m.all(-1).sum()) for m in masks))
+    info["reference"] = {"gaps": gaps, "limits": {k: limits[f"{k}_gap_limit" if k != "mask" else "mask_logit_gap_limit"]
+                                                  for k in ("class", "mask", "encoder")},
+                         "released_rows": released}
+    sound = all(max(gaps[k]) <= info["reference"]["limits"][k] for k in ("class", "mask", "encoder"))
+    control = any(min(gaps[f"fp8_{k}"]) > info["reference"]["limits"][k] for k in ("class", "mask", "encoder"))
+    if not sound or not control:
+        raise RuntimeError(f"Mask2Former against the reference: {info['reference']}")
+
+    # (c) the masked attention's backends at the three key lengths
+    info["attention_backends"] = _masked_attention_backends()
+    info["pinned"] = [b.name for b in m2f.ATTENTION_BACKENDS]
+
+    # (d) a frame's times: perceive (host frame in, tracks to the host), the
+    # captured pipeline, the segmenter alone eager
+    def perceive(i=[0]):
+        i[0] += 1
+        out = perc.perceive(host[i[0] % len(host)])
+        return [out[k].cpu() for k in ("left", "right", "centreline")]
+
+    walls = []
+    for _ in range(MASK2FORMER_TIMED):
+        t0 = time.perf_counter()
+        perceive()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    info["perceive_ms"] = {"p50": float(np.percentile(walls, 50)), "p95": float(np.percentile(walls, 95))}
+    info["captured_pipeline_ms"] = time_cuda_ms(lambda: perc._raw_pipeline(frames[0]), MASK2FORMER_TIMED)
+    info["segmenter_eager_ms"] = time_cuda_ms(lambda: perc.segmenter._apply(frames[0]), 10)
+
+    # (e) the kernels of captured frames, by device time a frame
+    n_prof = 10
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            perc._raw_pipeline(frames[0])
+        torch.cuda.synchronize()
+    table: dict = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            row = table.setdefault(evt.name, [0.0, 0])
+            row[0] += (evt.time_range.end - evt.time_range.start) * 1e-3 / n_prof
+            row[1] += 1
+    top = sorted(table.items(), key=lambda kv: -kv[1][0])
+    info["kernels_per_frame"] = [[name[:140], ms, n // n_prof] for name, (ms, n) in top[:16]]
+    info["device_ms_per_frame"] = sum(ms for ms, _ in table.values())
+    work = mask2former_flops(cfg.image_height, cfg.image_width, shape)
+    deform = [(name, row) for name, row in table.items() if op.KERNEL in name]
+    deform_ms = sum(row[0] for _, row in deform)
+    least_ms = 1e3 * max(work["sampling"] / FP32_FLOP_PER_S, work["sampling_bytes"] / HBM_BYTES_PER_S)
+    info["deform_attn"] = {"ms_per_frame": deform_ms, "launches_per_frame": sum(r[1] for _, r in deform) // n_prof,
+                           "least_ms": least_ms, "roofline_pct": 100.0 * least_ms / deform_ms if deform_ms else None}
+    if not deform:
+        raise RuntimeError(f"no kernel named {op.KERNEL} ran: {list(table)[:20]}")
+    info["frame_gflop"] = work["total"] / 1e9
+    info["mfu_pct_captured"] = 100.0 * work["total"] / BF16_FLOP_PER_S / (info["captured_pipeline_ms"] * 1e-3)
+
+    # (f) the spans and the counter, with the monitor on (a graph of its own)
+    MONITOR.enable()
+    try:
+        MONITOR.clear()
+        for i in range(3):
+            perc.perceive(host[i])
+        torch.cuda.synchronize()
+        for i in range(3):
+            perc.perceive(host[i])
+        torch.cuda.synchronize()
+        taken = MONITOR.take()
+    finally:
+        MONITOR.disable()
+        MONITOR.clear()
+    samples = collections.Counter(name for name, _, _ in taken["device"])
+    want_spans = ["mask2former.backbone", "mask2former.pixel_decoder", "mask2former.deform_attn",
+                  "mask2former.decoder", "mask2former.masked_attention", "mask2former.semantic"]
+    graph = "Perceiver._run_raw_frame"
+    info["spans"] = {"samples": {k: samples[k] for k in want_spans + ["perceiver.segment"]},
+                     "counter": taken["counters"].get("segmenter.forward:mask2former_r50", 0),
+                     # one replay a frame; the one capture is the monitor's own graph, at its first frame
+                     "replays": taken["counters"].get(f"graph.replay:{graph}", 0),
+                     "captures": taken["counters"].get(f"graph.capture:{graph}", 0)}
+    if (taken["counters"].get("segmenter.forward:mask2former_r50") != 6 or not all(samples[k] for k in want_spans)
+            or info["spans"]["replays"] != 6 or info["spans"]["captures"] != 1):
+        raise RuntimeError(f"Mask2Former's spans or counter: {info['spans']}, {dict(taken['counters'])}")
+    info["phase_s"] = time.perf_counter() - t_phase
+    info["card"] = card_line()
+    emit("phase 19 mask2former", info)
+    return info
+
+
 def kernels_line(
     kernel: dict, main: dict, mapping: dict, sweep: dict, multi: dict, perception: dict, agent: dict,
     tools: dict, parallel: dict, vmapped: dict, training: dict, compiled: dict, segformer: dict,
+    mask2former: dict,
 ) -> dict:
     """One row per kernel variant: launches summed over the paths
     (phases 4, 6, 8-10 and 12-17; phase 5 and 7 are single-scenario
@@ -3249,6 +3539,23 @@ def kernels_line(
                 "bound_by": "operations",
                 "library_ms": segformer["attention"]["ms_per_frame"],
             },
+            {
+                # Mask2Former's deformable sampling, which no TPU kernel
+                # computed: phase 19 at the published shapes, a launch (one
+                # encoder layer); launches over phase 19's frames; the
+                # library's yardstick the grid_sample composition
+                "name": "ms_deform_attn",
+                "route": "cuda",
+                "source": "acmpc_tpu_torch/csrc/ms_deform_attn.cu",
+                "replaces": None,
+                "launches": mask2former["launches_per_frame"] * MASK2FORMER_FRAMES,
+                "max_abs_err": mask2former["kernel"]["max_abs_err"],
+                "ms": mask2former["kernel"]["ms"],
+                "plain_ms": mask2former["kernel"]["plain_ms"],
+                "bound_ms": mask2former["kernel"]["bound_ms"],
+                "bound_by": mask2former["kernel"]["bound_by"],
+                "library_ms": mask2former["kernel"]["library_ms"],
+            },
         ]
     }
 
@@ -3281,9 +3588,10 @@ def main() -> int:
     training = phase_training()
     compiled = phase_compiled()
     segformer = phase_segformer()
+    mask2former = phase_mask2former()
     print(json.dumps(kernels_line(
         kernel, main_info, mapping, sweep, multi, perception, agent, tools, parallel, vmapped, training,
-        compiled, segformer,
+        compiled, segformer, mask2former,
     )))
     print(card_line())
     print(json.dumps({

@@ -1666,6 +1666,115 @@ def test_segformer_graph_equals_eager_on_card(cuda_device):
         assert torch.equal(graph[2][k], eager[2][k]), k
 
 
+# -- Mask2Former-R50 and ms_deform_attn (models/mask2former.py, ops/ms_deform_attn.py)
+
+# the published pixel decoder's three levels at 1280x736 (1/32, 1/16, 1/8)
+M2F_SHAPES = [(23, 40), (46, 80), (92, 160)]
+
+
+def _deform_inputs(device, seed=7):
+    """bf16 value, offsets and logits of one layer at the published shapes
+    (19,320 queries, 8 heads of 32, 3 levels, 4 points): offsets of a few
+    cells, some whole numbers (pixel centres, up to the reference
+    points' rounding) and some far outside the map."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    S = sum(h * w for h, w in M2F_SHAPES)
+    value = torch.randn(1, S, 256, device=device, generator=g).bfloat16()
+    offsets = torch.randn(1, S, 192, device=device, generator=g) * 3
+    offsets[0, ::7, ::3] = torch.round(offsets[0, ::7, ::3])
+    offsets[0, ::11, ::5] *= 40
+    logits = torch.randn(1, S, 96, device=device, generator=g).bfloat16()
+    return value, offsets.bfloat16(), logits
+
+
+@pytest.mark.cuda
+def test_ms_deform_attn_kernel_matches_its_twin_at_the_published_shapes(cuda_device):
+    # the kernel and the plain version form the same float32 locations and
+    # weights and sum the same taps in float32 in another order: the bf16
+    # outputs differ by at most one rounding of the larger (2^-7 of it),
+    # or by float32 sums' rounding where the taps cancel near zero
+    from acmpc_tpu_torch.ops import ms_deform_attn as op
+
+    value, offsets, logits = _deform_inputs(cuda_device)
+    before = op.ms_deform_attn.launches[op.KERNEL]
+    got = op.ms_deform_attn(value, offsets, logits, M2F_SHAPES)
+    torch.cuda.synchronize()
+    assert op.ms_deform_attn.launches[op.KERNEL] == before + 1
+    want = op.ms_deform_attn_reference(value, offsets, logits, M2F_SHAPES)
+    assert got.shape == want.shape == value.shape and got.dtype == torch.bfloat16
+    g, w = got.float(), want.float()
+    assert bool(((g - w).abs() <= 2.0 ** -7 * torch.maximum(g.abs(), w.abs()) + 1e-5 * w.abs().max()).all())
+
+
+def _m2f_perceiver(device):
+    import json
+
+    from acmpc_tpu_torch.bench import perception_loop as loop
+    from acmpc_tpu_torch.ops.jpeg_round_trip import jpeg_round_trip_reference
+    from acmpc_tpu_torch.perception.perceiver import Perceiver
+    from perfbench.drivers.perceive import asphalt
+    from perfbench.reference.mask2former import fit_heads, random_state
+
+    shape = json.loads((ROOT / "perfbench" / "configs" / "monza_racing_mask2former_r50.json").read_text())
+    cfg = dataclasses.replace(loop.perception_config(precision="bf16"), architecture="mask2former_r50",
+                              model_path=None)
+    centre, left, right, _ = loop.circuit()
+    host, _ = loop.sim_frames(loop.make_sim(cfg, centre, left, right), centre, 3)
+    frames = [torch.as_tensor(f, device=device) for f in host]
+    fit = [jpeg_round_trip_reference(f).cpu().numpy() for f in frames[:2]]
+    variables = fit_heads(random_state(2**31 + 24, shape), shape, fit, [asphalt(i) for i in fit], device)
+    return shape, variables, frames, Perceiver(cfg, variables, device=device, keep_logits=True)
+
+
+@pytest.mark.cuda
+def test_mask2former_graph_replays_equal_eager_on_card(cuda_device):
+    from acmpc_tpu_torch.ops import ms_deform_attn as op
+    from acmpc_tpu_torch.ops.jpeg_round_trip import jpeg_round_trip_reference
+    from acmpc_tpu_torch.perception.tracks import TRACK_KEYS
+
+    _, _, frames, perc = _m2f_perceiver(cuda_device)
+    eager = perc._run_pipeline(jpeg_round_trip_reference(frames[2]))
+    for _ in range(3):  # the capture, then two replays
+        graph = perc._raw_pipeline(frames[2])
+    assert torch.equal(graph[0], eager[0]) and torch.equal(graph[1], eager[1])
+    assert len(graph.logits) == len(eager.logits) == 3 + 9
+    assert all(torch.equal(a, b) for a, b in zip(graph.logits, eager.logits))
+    for k in TRACK_KEYS:
+        assert torch.equal(graph[2][k], eager[2][k]), k
+    # six deformable layers: six launches a frame, each replay too
+    settle_launches()
+    op.ms_deform_attn.launches.clear()
+    for _ in range(4):
+        perc._raw_pipeline(frames[1])
+    settle_launches()
+    assert op.ms_deform_attn.launches[op.KERNEL] == 6 * 4
+
+
+@pytest.mark.cuda
+def test_mask2former_matches_the_reference_on_card(cuda_device):
+    # 1280x736 in bf16 against the plain float32 reference on the frame's
+    # round trip, fed the program's attention masks, within the benchmark
+    # cell's limits (PERF.md: the readings they were set from)
+    import json
+
+    from acmpc_tpu_torch.ops.jpeg_round_trip import jpeg_round_trip_reference
+    from perfbench.reference.mask2former import Mask2Former
+
+    limits = json.loads((ROOT / "perfbench" / "traffic" / "perceive_m2f_b1.json").read_text())
+    shape, variables, frames, perc = _m2f_perceiver(cuda_device)
+    cls, mask, memory, *masks = perc._raw_pipeline(frames[2]).logits
+    assert cls.shape == (1, 100, 11) and mask.shape == (1, 100, 184, 320) and memory.shape == (1, 19_320, 256)
+    want = Mask2Former(variables, shape, cuda_device).forward(jpeg_round_trip_reference(frames[2]),
+                                                              [m[0] for m in masks])
+
+    def gap(got, ref):
+        return float((got.double() - ref.double()).abs().max() / ref.abs().max())
+
+    assert gap(cls[0], want["class_logits"]) <= limits["class_gap_limit"]
+    assert gap(mask[0], want["mask_logits"]) <= limits["mask_logit_gap_limit"]
+    assert gap(memory[0], want["memory"]) <= limits["encoder_gap_limit"]
+
+
 # -- Ruiz equilibration (ops/ruiz.py) -----------------------------------------
 
 # the kernel against the plain version: every product, square root and

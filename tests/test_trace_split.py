@@ -152,3 +152,27 @@ def test_layer_numbers_of_segformer_spans():
     assert program["counters"] == {"segmenter.forward:segformer_b2": 2}
     sums = trace_split.bounding_sums(got, {}, [0.005])
     assert sums == {"segformer stages + decode <= segment_device_ms": pytest.approx((3.5, 4.0))}
+
+
+def test_layer_numbers_of_mask2former_spans():
+    # two frames: the four stages' samples, six deformable and nine masked
+    # attention samples each (one a layer), under the segmenter's span
+    device = []
+    for request in (1, 2):
+        device += [("perceiver.segment", request, 10.0), ("mask2former.backbone", request, 3.0),
+                   ("mask2former.pixel_decoder", request, 4.0), ("mask2former.decoder", request, 2.0),
+                   ("mask2former.semantic", request, 0.5)]
+        device += [("mask2former.deform_attn", request, 0.25)] * 6
+        device += [("mask2former.masked_attention", request, 0.1)] * 9
+    program = trace_split.per_request(_taken([], device, {"segmenter.forward:mask2former_r50": 2}), 2)
+    got = trace_split.layer_numbers(program, 1)
+    assert got == pytest.approx({
+        "segment_device_ms": 10.0, "mask2former_backbone_device_ms": 3.0, "mask2former_pixel_decoder_device_ms": 4.0,
+        "mask2former_deform_attn_device_ms": 1.5, "mask2former_decoder_device_ms": 2.0,
+        "mask2former_masked_attention_device_ms": 0.9, "mask2former_semantic_device_ms": 0.5, "graph_captures": 0})
+    assert program["counters"] == {"segmenter.forward:mask2former_r50": 2}
+    assert trace_split.bounding_sums(got, {}, [0.012]) == {
+        "mask2former stages <= segment_device_ms": pytest.approx((9.5, 10.0)),
+        "mask2former_deform_attn <= mask2former_pixel_decoder": pytest.approx((1.5, 4.0)),
+        "mask2former_masked_attention <= mask2former_decoder": pytest.approx((0.9, 2.0)),
+    }

@@ -89,7 +89,8 @@ def layer_numbers(program: dict, batch: int) -> dict:
     report them (``.b<batch>`` where the batch is in the name); a number
     whose spans (or, for a device number, their samples) were not
     recorded is left out. SegFormer's attention is the sum of its blocks'
-    samples (16 a frame at B2's depths)."""
+    samples (16 a frame at B2's depths); Mask2Former's deformable and
+    masked attention the sums of their layers' (6 and 9 a frame)."""
     spans = program["spans"]
 
     def total(kind, *names):
@@ -106,6 +107,8 @@ def layer_numbers(program: dict, batch: int) -> dict:
         **{f"segformer_stage{i}_device_ms": total("device_ms", f"segformer.stage{i}") for i in range(1, 5)},
         "segformer_decode_device_ms": total("device_ms", "segformer.decode"),
         "segformer_attention_device_ms": total("device_ms", "segformer.attention"),
+        **{f"mask2former_{k}_device_ms": total("device_ms", f"mask2former.{k}")
+           for k in ("backbone", "pixel_decoder", "deform_attn", "decoder", "masked_attention", "semantic")},
         "graph_io_ms" + b: total("host_ms", "graph.inputs", "graph.outputs"),
         "prepare_device_ms" + b: total("device_ms", "mpc.prepare"),
         "factor_device_ms" + b: total("device_ms", "qp.factor"),
@@ -121,8 +124,10 @@ def bounding_sums(numbers: dict, bench_spans: dict, latencies_s: list) -> dict:
     """The sums the per-layer numbers must stay under, each as
     (sum, bound): the host JPEG and upload inside the benchmark's
     perception time, the three device numbers of a B = 1 step inside its
-    control time, SegFormer's stages and head inside the segmenter's
-    device time, the four of the B = 256 step inside its wall."""
+    control time, SegFormer's stages and head, and Mask2Former's four
+    stages, inside the segmenter's device time, Mask2Former's attention
+    layers inside their stages, the four of the B = 256 step inside its
+    wall."""
     mean_ms = lambda xs: 1e3 * statistics.fmean(xs)  # noqa: E731
     out = {}
     if "jpeg_ms" in numbers and "perception" in bench_spans:
@@ -134,6 +139,13 @@ def bounding_sums(numbers: dict, bench_spans: dict, latencies_s: list) -> dict:
     seg = [numbers.get(f"segformer_{k}_device_ms") for k in ("stage1", "stage2", "stage3", "stage4", "decode")]
     if None not in seg and "segment_device_ms" in numbers:
         out["segformer stages + decode <= segment_device_ms"] = (sum(seg), numbers["segment_device_ms"])
+    m2f = [numbers.get(f"mask2former_{k}_device_ms") for k in ("backbone", "pixel_decoder", "decoder", "semantic")]
+    if None not in m2f and "segment_device_ms" in numbers:
+        out["mask2former stages <= segment_device_ms"] = (sum(m2f), numbers["segment_device_ms"])
+    for inner, outer in (("deform_attn", "pixel_decoder"), ("masked_attention", "decoder")):
+        pair = numbers.get(f"mask2former_{inner}_device_ms"), numbers.get(f"mask2former_{outer}_device_ms")
+        if None not in pair:
+            out[f"mask2former_{inner} <= mask2former_{outer}"] = pair
     sweep = [numbers.get(f"{k}_device_ms.b256") for k in ("prepare", "factor", "iterate", "lap")]
     if None not in sweep:
         out["b256 device <= step wall"] = (sum(sweep), mean_ms(latencies_s))
