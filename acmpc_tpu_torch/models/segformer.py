@@ -39,7 +39,9 @@ segmenter's input convention is the FPN's). H and W must divide by 32.
 Inside, the feature maps are NCHW in ``channels_last`` memory, so that
 tokens (N, H * W, C) and maps are views of one buffer and no transpose
 is copied. Attention goes through ``F.scaled_dot_product_attention``; on
-the card through the backend ``ATTENTION_BACKENDS`` pins.
+the card through the backend ``ATTENTION_BACKENDS`` pins. The head's
+resizes and concatenation are ``ops/segformer_resample.py``: on the card
+one kernel, bit-equal to ``F.interpolate`` and ``torch.cat``.
 
 The state dict's names are those of ``transformers``'
 ``SegformerForSemanticSegmentation`` (``segformer.encoder.block.0.0.
@@ -57,6 +59,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
+from acmpc_tpu_torch.ops.segformer_resample import segformer_resample
 from acmpc_tpu_torch.utils.monitor import MONITOR
 
 LN_EPS = 1e-6
@@ -254,15 +257,9 @@ class DecodeHead(nn.Module):
         self.classifier = nn.Conv2d(d, cfg.num_labels, 1)
 
     def forward(self, feats):
-        size = feats[0].shape[-2:]
-        parts = []
-        for x, mlp in zip(feats, self.linear_c):
-            h, w = x.shape[-2:]
-            y = _map(mlp(_tokens(x)), h, w)
-            if (h, w) != size:
-                y = F.interpolate(y, size=size, mode="bilinear", align_corners=False)
-            parts.append(y)
-        x = torch.cat(parts[::-1], dim=1)  # deepest first, as published
+        parts = [_map(mlp(_tokens(x)), *x.shape[-2:]) for x, mlp in zip(feats, self.linear_c)]
+        # resized to stage 1's grid and concatenated deepest first, as published
+        x = segformer_resample(parts, feats[0].shape[-2:])
         x = F.relu(self.batch_norm(self.linear_fuse(x)))
         return self.classifier(x)
 

@@ -272,6 +272,17 @@ Phases, each printing one line:
      monitor on, the Mask2Former spans under ``perceiver.segment`` and a
      ``segmenter.forward:mask2former_r50`` count a frame. The kernels
      line gains the ``ms_deform_attn`` row.
+  20. SegFormer's head resample (``csrc/segformer_resample.cu``): the
+     kernel against its plain version (``F.interpolate`` and
+     ``torch.cat``) at 1280x736 and 640x384, N = 1 and 2, bf16 and
+     float32: the share of bit-equal elements and the largest distance in
+     ulps (one the most allowed), the strides; its ms at 1280x736 bf16 at
+     each pixels-a-warp beside the plain version's and its bound; the
+     SegFormer perceiver (seeded random weights) on 4 sim frames: the
+     captured replays and the perceiver with the plain head against eager,
+     logits, masks and tracks bit-equal, one launch a frame; a profile of
+     captured frames: the resample's ms a frame and the kernels a frame.
+     The kernels line gains the ``segformer_resample`` row.
 Then the kernels line, the card line and, last, the result line. Any
 failure raises and the exit code is not 0. Without a CUDA device it
 exits with code 2 and prints no result.
@@ -424,6 +435,8 @@ SEGFORMER_TIMED = 50
 MASK2FORMER_FRAMES = 6
 MASK2FORMER_SEED = 2**31 + 2024
 MASK2FORMER_TIMED = 50
+RESAMPLE_FRAMES = ((736, 1280), (384, 640))
+RESAMPLE_PERCEIVER_FRAMES = 4
 # the kernel against its plain version: the same float32 locations,
 # weights and taps summed in another order, each bf16 output within one
 # rounding of the larger of the two, or float32 sums' rounding where the
@@ -3383,10 +3396,107 @@ def phase_mask2former() -> dict:
     return info
 
 
+def phase_segformer_resample() -> dict:
+    """SegFormer's head resample: the kernel against its plain version at
+    both frames, both batches and both dtypes; its times; in the SegFormer
+    perceiver, the captured replays and the plain head against eager, the
+    launches a frame and a profile (see the module's phase 20)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from acmpc_tpu_torch.bench import perception_loop as loop
+    from acmpc_tpu_torch.bench import segformer_head as head
+    from acmpc_tpu_torch.models import segformer as sf
+    from acmpc_tpu_torch.ops import segformer_resample as op
+    from acmpc_tpu_torch.ops.graph_loop import settle_launches
+    from acmpc_tpu_torch.ops.jpeg_round_trip import jpeg_round_trip_reference
+    from acmpc_tpu_torch.perception.perceiver import Perceiver
+    from acmpc_tpu_torch.perception.tracks import TRACK_KEYS
+    from perfbench.reference.segformer import SHAPE_KEYS, random_state
+
+    t_phase = time.perf_counter()
+    info: dict = {"torch": torch.__version__}
+
+    # (a) the kernel against the plain version
+    rows = []
+    for frame in RESAMPLE_FRAMES:
+        for n in (1, 2):
+            for dtype in (torch.bfloat16, torch.float32):
+                parts = head.head_parts(n, *frame, dtype, DEVICE, seed=n)
+                size = parts[0].shape[-2:]
+                got = op.segformer_resample(parts, size)
+                want = op.segformer_resample_reference(parts, size)
+                rows.append({"frame": list(frame), "n": n, "dtype": str(dtype).removeprefix("torch."),
+                             **head.compare(got, want), "strides_equal": got.stride() == want.stride()})
+                del parts, got, want
+    info["kernel_vs_plain"] = rows
+    if any(r["max_ulps"] > 1 or not r["strides_equal"] for r in rows):
+        raise RuntimeError(f"segformer_resample against its plain version: {rows}")
+
+    # (b) its time at the cell's shape, beside the plain version's and the bound
+    info["timed"] = head.measure(1, *RESAMPLE_FRAMES[0], torch.bfloat16, DEVICE)
+
+    # (c) the perceiver: captured replays and the plain head against eager,
+    # one launch a frame
+    cfg = dataclasses.replace(loop.perception_config(precision="bf16"), architecture="segformer_b2",
+                              model_path=None)
+    shape = {k: getattr(sf.SegformerConfig(), k) for k in SHAPE_KEYS}
+    centre, left, right, _ = loop.circuit()
+    host, _ = loop.sim_frames(loop.make_sim(cfg, centre, left, right), centre, RESAMPLE_PERCEIVER_FRAMES)
+    frames = [torch.as_tensor(f, device=DEVICE) for f in host]
+    perc = Perceiver(cfg, random_state(SEGFORMER_SEED, shape), device=DEVICE, keep_logits=True)
+    mismatches = []
+    for i, frame in enumerate(frames):
+        image = jpeg_round_trip_reference(frame)
+        eager, graph = perc._run_pipeline(image), perc._raw_pipeline(frame)
+        pinned, sf.segformer_resample = sf.segformer_resample, op.segformer_resample_reference
+        try:
+            plain = perc._run_pipeline(image)
+        finally:
+            sf.segformer_resample = pinned
+        for name, other in (("graph", graph), ("plain_head", plain)):
+            pairs = {"logits": (eager.logits, other.logits), "drivable": (eager[0], other[0]),
+                     "semantics": (eager[1], other[1]), **{k: (eager[2][k], other[2][k]) for k in TRACK_KEYS}}
+            mismatches += [f"frame {i} {name}: {k}" for k, (a, b) in pairs.items() if not torch.equal(a, b)]
+    info["bit_equal"] = {"frames": len(frames), "mismatches": mismatches[:10]}
+    if mismatches:
+        raise RuntimeError(f"SegFormer through the resample kernel differs: {mismatches[:10]}")
+    settle_launches()
+    op.segformer_resample.launches.clear()
+    for frame in frames:
+        perc._raw_pipeline(frame)
+    settle_launches()
+    info["launches_per_frame"] = op.segformer_resample.launches[op.KERNEL] / len(frames)
+    if info["launches_per_frame"] != 1:
+        raise RuntimeError(f"segformer_resample launches a frame: {info['launches_per_frame']}")
+
+    # (d) the kernels of captured frames, by device time a frame
+    n_prof = 10
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            perc._raw_pipeline(frames[0])
+        torch.cuda.synchronize()
+    table: dict = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            row = table.setdefault(evt.name, [0.0, 0])
+            row[0] += (evt.time_range.end - evt.time_range.start) * 1e-3 / n_prof
+            row[1] += 1
+    top = sorted(table.items(), key=lambda kv: -kv[1][0])
+    info["kernels_per_frame"] = [[name[:140], ms, n // n_prof] for name, (ms, n) in top[:12]]
+    info["device_ms_per_frame"] = sum(ms for ms, _ in table.values())
+    info["resample_ms_per_frame"] = sum(ms for name, (ms, _) in table.items() if op.KERNEL in name)
+    info["captured_pipeline_ms"] = time_cuda_ms(lambda: perc._raw_pipeline(frames[0]), SEGFORMER_TIMED)
+    info["phase_s"] = time.perf_counter() - t_phase
+    info["card"] = card_line()
+    emit("phase 20 segformer resample", info)
+    return info
+
+
 def kernels_line(
     kernel: dict, main: dict, mapping: dict, sweep: dict, multi: dict, perception: dict, agent: dict,
     tools: dict, parallel: dict, vmapped: dict, training: dict, compiled: dict, segformer: dict,
-    mask2former: dict,
+    mask2former: dict, resample: dict,
 ) -> dict:
     """One row per kernel variant: launches summed over the paths
     (phases 4, 6, 8-10 and 12-17; phase 5 and 7 are single-scenario
@@ -3556,6 +3666,24 @@ def kernels_line(
                 "bound_by": mask2former["kernel"]["bound_by"],
                 "library_ms": mask2former["kernel"]["library_ms"],
             },
+            {
+                # SegFormer's head resample, which no TPU kernel computed:
+                # phase 20 at 1280x736 bf16, a launch (one frame); launches
+                # over phase 20's frames; the plain version is the library
+                # composition (F.interpolate and torch.cat) the head ran
+                # before; max_ulps over both frames, batches and dtypes
+                "name": "segformer_resample",
+                "route": "cuda",
+                "source": "acmpc_tpu_torch/csrc/segformer_resample.cu",
+                "replaces": None,
+                "launches": resample["launches_per_frame"] * RESAMPLE_PERCEIVER_FRAMES,
+                "max_ulps": max(r["max_ulps"] for r in resample["kernel_vs_plain"]),
+                "ms": resample["timed"]["ms"],
+                "plain_ms": resample["timed"]["plain_ms"],
+                "bound_ms": resample["timed"]["bound_ms"],
+                "bound_by": "bytes",
+                "library_ms": resample["timed"]["plain_ms"],
+            },
         ]
     }
 
@@ -3589,9 +3717,10 @@ def main() -> int:
     compiled = phase_compiled()
     segformer = phase_segformer()
     mask2former = phase_mask2former()
+    resample = phase_segformer_resample()
     print(json.dumps(kernels_line(
         kernel, main_info, mapping, sweep, multi, perception, agent, tools, parallel, vmapped, training,
-        compiled, segformer, mask2former,
+        compiled, segformer, mask2former, resample,
     )))
     print(card_line())
     print(json.dumps({

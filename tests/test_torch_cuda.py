@@ -1666,6 +1666,70 @@ def test_segformer_graph_equals_eager_on_card(cuda_device):
         assert torch.equal(graph[2][k], eager[2][k]), k
 
 
+# -- SegFormer's head resample (ops/segformer_resample.py)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "float32"])
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("frame", [(736, 1280), (384, 640)], ids=["1280x736", "640x384"])
+def test_segformer_resample_kernel_equals_the_plain_version_on_card(cuda_device, frame, n, dtype):
+    # the kernel forms PyTorch's resize weights and blend in float32 and
+    # rounds once, as upsample_bilinear2d does: bit-equal is expected, one
+    # unit in the last place the most allowed
+    from acmpc_tpu_torch.bench.segformer_head import compare, head_parts
+    from acmpc_tpu_torch.ops import segformer_resample as op
+
+    parts = head_parts(n, *frame, dtype, cuda_device, seed=n)
+    size = parts[0].shape[-2:]
+    before = op.segformer_resample.launches[op.KERNEL]
+    got = op.segformer_resample(parts, size)
+    torch.cuda.synchronize()
+    assert op.segformer_resample.launches[op.KERNEL] == before + 1
+    want = op.segformer_resample_reference(parts, size)
+    assert got.shape == want.shape == (n, 4 * op.CHANNELS, frame[0] // 4, frame[1] // 4)
+    assert got.dtype == dtype and got.stride() == want.stride()
+    assert compare(got, want)["max_ulps"] <= 1
+
+
+@pytest.mark.cuda
+def test_segformer_head_resamples_in_one_launch_a_frame_on_card(cuda_device):
+    # each replay runs the kernel once (its output against eager:
+    # test_segformer_graph_equals_eager_on_card)
+    from acmpc_tpu_torch.ops import segformer_resample as op
+
+    cfg, _, _, perc = _segformer_perceiver(cuda_device)
+    frame = torch.as_tensor(_sim_frame(cfg), device=cuda_device)
+    perc._raw_pipeline(frame)  # the capture
+    settle_launches()
+    op.segformer_resample.launches.clear()
+    for _ in range(4):
+        perc._raw_pipeline(frame)
+    settle_launches()
+    assert op.segformer_resample.launches[op.KERNEL] == 4
+
+
+@pytest.mark.cuda
+def test_segformer_perceiver_equals_its_plain_head_on_card(cuda_device, monkeypatch):
+    # the perceiver through the kernel against the same perceiver with the
+    # head's plain resizes and torch.cat: the fuse reads the same bits, so
+    # the logits, masks and tracks are equal
+    from acmpc_tpu_torch.models import segformer as sf
+    from acmpc_tpu_torch.ops.jpeg_round_trip import jpeg_round_trip_reference
+    from acmpc_tpu_torch.ops.segformer_resample import segformer_resample_reference
+    from acmpc_tpu_torch.perception.tracks import TRACK_KEYS
+
+    cfg, _, _, perc = _segformer_perceiver(cuda_device)
+    image = jpeg_round_trip_reference(torch.as_tensor(_sim_frame(cfg), device=cuda_device))
+    got = perc._run_pipeline(image)
+    monkeypatch.setattr(sf, "segformer_resample", segformer_resample_reference)
+    want = perc._run_pipeline(image)
+    assert torch.equal(got.logits, want.logits)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for k in TRACK_KEYS:
+        assert torch.equal(got[2][k], want[2][k]), k
+
+
 # -- Mask2Former-R50 and ms_deform_attn (models/mask2former.py, ops/ms_deform_attn.py)
 
 # the published pixel decoder's three levels at 1280x736 (1/32, 1/16, 1/8)
