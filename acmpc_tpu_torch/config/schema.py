@@ -48,8 +48,8 @@ class PerceptionConfig:
     camera_position: tuple
     camera_pitch_deg: float
     # the segmenter (perception/segmentation.ARCHITECTURES: fpn_resnet18,
-    # segformer_b2, mask2former_r50); the port's own key: the JAX package
-    # runs the FPN alone
+    # segformer_b2, mask2former_r50, mask2former_swin_l); the port's own
+    # key: the JAX package runs the FPN alone
     architecture: str = "fpn_resnet18"
 
     @classmethod

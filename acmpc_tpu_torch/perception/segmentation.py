@@ -5,9 +5,10 @@ weights, normalise the frame, run the segmenter, take the class argmax,
 and zero the classes above 1 to get the drivable mask. The segmenter is
 the one ``perception.architecture`` names (``ARCHITECTURES``): the
 FPN-ResNet18 of the JAX package (``fpn_resnet18``, the default),
-SegFormer-B2 (``segformer_b2``) or Mask2Former-R50 (``mask2former_r50``),
-the port's own; each has one entry in ``ENTRIES`` (its model, weight
-loader and saver, input and logits-to-frame rules). It runs in the
+SegFormer-B2 (``segformer_b2``), Mask2Former-R50 (``mask2former_r50``) or
+Mask2Former-Swin-L (``mask2former_swin_l``), the port's own; each has
+one entry in ``ENTRIES`` (its model, weight loader and saver, input and
+logits-to-frame rules). It runs in the
 configured precision as parameters and inputs of that dtype (no
 autocast), so the casts sit where the JAX package has them: the stored
 parameters cast to the compute dtype at load, the frame cast and then
@@ -48,8 +49,9 @@ from acmpc_tpu_torch.models.fpn_resnet18 import (
     flax_tree_from_state_dict,
     state_dict_from_flax,
 )
-from acmpc_tpu_torch.models.mask2former import Mask2Former, semantic_scores
+from acmpc_tpu_torch.models.mask2former import Mask2Former, Mask2FormerConfig, semantic_scores
 from acmpc_tpu_torch.models.segformer import SegformerForSemanticSegmentation, to_frame
+from acmpc_tpu_torch.models.swin import SwinConfig
 from acmpc_tpu_torch.ops.graph_loop import GraphCache
 from acmpc_tpu_torch.utils.monitor import MONITOR
 
@@ -64,6 +66,7 @@ PRECISION = {
 FPN = "fpn_resnet18"
 SEGFORMER = "segformer_b2"
 MASK2FORMER = "mask2former_r50"
+MASK2FORMER_SWIN_L = "mask2former_swin_l"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,6 +121,11 @@ def _scaled(image: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return image.to(dtype) / 255.0
 
 
+def _mask2former_semantics(out, h: int, w: int) -> torch.Tensor:
+    """The class map of Mask2Former's semantic inference at the frame."""
+    return torch.argmax(semantic_scores(out[0], out[1], h, w), dim=1)[0]
+
+
 ENTRIES = {
     # the FPN: a Flax checkpoint, float32 logits at the frame
     FPN: Architecture(
@@ -135,8 +143,13 @@ ENTRIES = {
     # of the final class and mask logits at the frame
     MASK2FORMER: Architecture(
         model=Mask2Former, state_dict=_tensors, load=_state_dict_loader(MASK2FORMER), save=_save_state_dict,
-        inputs=lambda image, dtype: image,
-        semantics=lambda out, h, w: torch.argmax(semantic_scores(out[0], out[1], h, w), dim=1)[0],
+        inputs=lambda image, dtype: image, semantics=_mask2former_semantics,
+    ),
+    # the same with Swin-L in place of the ResNet
+    MASK2FORMER_SWIN_L: Architecture(
+        model=lambda: Mask2Former(Mask2FormerConfig(backbone_config=SwinConfig())), state_dict=_tensors,
+        load=_state_dict_loader(MASK2FORMER_SWIN_L), save=_save_state_dict, inputs=lambda image, dtype: image,
+        semantics=_mask2former_semantics,
     ),
 }
 ARCHITECTURES = tuple(ENTRIES)
@@ -146,7 +159,7 @@ def load_variables(path: str | pathlib.Path, architecture: str = FPN) -> dict:
     """The weights of a checkpoint as ``TrackSegmenter`` takes them: for
     the FPN the Flax variables tree (numpy leaves, stored dtypes) of a
     ``.msgpack`` (Flax serialization) or smp ``.pt``/``.pth``
-    checkpoint; for SegFormer and Mask2Former the state dict of a
+    checkpoint; for SegFormer and the Mask2Formers the state dict of a
     ``.pt``/``.pth`` file. Raises ``FileNotFoundError`` when the file is
     missing."""
     p = pathlib.Path(path)
@@ -217,8 +230,9 @@ class TrackSegmenter:
         the FPN's float32 logits (1, H, W, 10), which the argmax reads;
         SegFormer's (1, H / 4, W / 4, 10) in the compute dtype, which the
         argmax reads resized to the frame (``to_frame``); Mask2Former's
-        (class logits, mask logits, the 9 attention masks), whose
-        semantic inference at the frame the argmax reads."""
+        (class logits, mask logits, the 9 attention masks; Swin-L's
+        res2-res5 after them), whose semantic inference at the frame the
+        argmax reads."""
         entry = ENTRIES[self.architecture]
         logits = self.model(entry.inputs(image, self._dtype)[None])
         semantics = entry.semantics(logits, *image.shape[:2]).to(torch.uint8)

@@ -39,7 +39,7 @@ span):
 | Layer | Spans and counters |
 |---|---|
 | perception (``perception/perceiver.py``) | ``perceiver.perceive``; on the host path ``perceiver.jpeg_encode``, ``perceiver.jpeg_decode``, ``perceiver.resize`` (only when it resizes); ``perceiver.upload``, ``perceiver.pipeline``; ``perceiver.jpeg`` (d, the card's round trip), ``perceiver.segment`` (d), ``perceiver.extract`` (d); counters ``perceiver.jpeg:device``, ``perceiver.jpeg:host`` (a frame each) |
-| segmenter (``perception/segmentation.py``, ``models/segformer.py``, ``models/mask2former.py``) | counter ``segmenter.forward:<architecture>`` (a frame, at ``perceive`` and ``segment_drivable_area``); SegFormer's ``segformer.stage1`` .. ``segformer.stage4`` (d), ``segformer.decode`` (d), ``segformer.attention`` (d, a block each), inside ``perceiver.segment``; Mask2Former's ``mask2former.backbone`` (d), ``mask2former.pixel_decoder`` (d) holding ``mask2former.deform_attn`` (d, a layer each), ``mask2former.decoder`` (d) holding ``mask2former.masked_attention`` (d, a layer each), ``mask2former.semantic`` (d), inside ``perceiver.segment`` |
+| segmenter (``perception/segmentation.py``, ``models/segformer.py``, ``models/mask2former.py``, ``models/swin.py``) | counter ``segmenter.forward:<architecture>`` (a frame, at ``perceive`` and ``segment_drivable_area``); SegFormer's ``segformer.stage1`` .. ``segformer.stage4`` (d), ``segformer.decode`` (d), ``segformer.attention`` (d, a block each), inside ``perceiver.segment``; Mask2Former's ``mask2former.backbone`` (d), ``mask2former.pixel_decoder`` (d) holding ``mask2former.deform_attn`` (d, a layer each), ``mask2former.decoder`` (d) holding ``mask2former.masked_attention`` (d, a layer each), ``mask2former.semantic`` (d), inside ``perceiver.segment``; with Swin-L, ``swin.stage1`` .. ``swin.stage4`` (d) inside ``mask2former.backbone`` and ``swin.window_attention`` (d, a block each) inside them |
 | compiled graphs (``ops/graph_loop.py``) | ``graph.inputs``, ``graph.replay``, ``graph.outputs``; counters ``graph.capture:<name>``, ``graph.replay:<name>`` |
 | control step (``runtime/controller.py``, ``mpc/spatial_mpc.py``) | ``control.solve``; ``control.refit``, ``control.step``, ``control.publish``; ``mpc.shift`` (d), ``mpc.prepare`` (d), ``mpc.extract`` (d) |
 | QP engine (``qp/admm.py``, ``qp/batched.py``) | ``qp.factor`` (d), ``qp.iterate`` (d), ``qp.read_done`` (adaptive rho's host read of a chunk's flags) |

@@ -283,6 +283,23 @@ Phases, each printing one line:
      logits, masks and tracks bit-equal, one launch a frame; a profile of
      captured frames: the resample's ms a frame and the kernels a frame.
      The kernels line gains the ``segformer_resample`` row.
+  21. Mask2Former-Swin-L (``models/swin.py``, ``models/mask2former.py``)
+     as the perceiver's segmenter at 1280x736 bf16, with the plain
+     reference's seeded random weights (``perfbench/reference/swin.py``:
+     ``random_state``, ``fit_heads`` on two sim frames):
+     ``csrc/window_attention.cu`` against its plain version at Swin-L's
+     four stage shapes, unshifted and shifted, each timed alone beside
+     its bound, the plain version and the library's yardstick (SDPA on
+     partitioned windows with a precomputed float bias and mask, timed
+     here only); ``_raw_pipeline`` against eager on 4 sim frames, every
+     output bit-equal, 24 window-attention and 6 deformable launches a
+     frame; the class, mask, encoder and backbone gaps against the plain
+     reference (fed the program's attention masks) within the benchmark
+     cell's limits, and the float8 control outside one; ``perceive`` a
+     frame and the captured pipeline; a profile: the kernels a frame,
+     the window attention's time and its roofline share; with the
+     monitor on, the Swin spans under ``mask2former.backbone``. The
+     kernels line gains the ``window_attention`` row.
 Then the kernels line, the card line and, last, the result line. Any
 failure raises and the exit code is not 0. Without a CUDA device it
 exits with code 2 and prints no result.
@@ -435,6 +452,11 @@ SEGFORMER_TIMED = 50
 MASK2FORMER_FRAMES = 6
 MASK2FORMER_SEED = 2**31 + 2024
 MASK2FORMER_TIMED = 50
+SWIN_FRAMES = 4
+SWIN_SEED = 2**31 + 2026
+SWIN_TIMED = 30
+# Swin-L's four stages at 1280x736: (grid, channels, heads, blocks)
+SWIN_L_STAGES = (((184, 320), 192, 6, 2), ((92, 160), 384, 12, 2), ((46, 80), 768, 24, 18), ((23, 40), 1536, 48, 2))
 RESAMPLE_FRAMES = ((736, 1280), (384, 640))
 RESAMPLE_PERCEIVER_FRAMES = 4
 # the kernel against its plain version: the same float32 locations,
@@ -3396,6 +3418,215 @@ def phase_mask2former() -> dict:
     return info
 
 
+def _window_kernel() -> dict:
+    """``window_attention`` at Swin-L's four stage shapes (window 12,
+    unshifted and shifted by 6; qkv of N(0, 2^2), bias and table N(0,
+    1)): against the exact attention (float64 of the same inputs) no
+    further than the plain bf16 composition, up to one rounding of the
+    output (``tests/test_torch_cuda.py``); ms a launch (CUDA events),
+    the plain version's, the library's yardstick (SDPA on the windows
+    partitioned beforehand, the bias and mask added into one float mask
+    beforehand: its call alone) and the bound (bytes at the HBM peak or
+    Q K^T and P V at the bf16 peak); and a frame's 24 blocks summed."""
+    import torch
+    import torch.nn.functional as F
+
+    from acmpc_tpu_torch.ops import window_attention as op
+    from perfbench.metrics._peaks import BF16_FLOP_PER_S
+
+    rows, frame = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for (h, w), c, heads, blocks in SWIN_L_STAGES:
+        for shift in (0, 6):
+            g = torch.Generator(device=DEVICE).manual_seed(5)
+            qkv = (2.0 * torch.randn((1, h, w, 3 * c), device=DEVICE, generator=g)).bfloat16()
+            bias = torch.randn(3 * c, device=DEVICE, generator=g).bfloat16()
+            table = torch.randn((23 * 23, heads), device=DEVICE, generator=g).bfloat16()
+            got = op.window_attention(qkv, bias, table, heads, 12, shift).double()
+            want = op.window_attention_reference(qkv, bias, table, heads, 12, shift).double()
+            exact = op.window_attention_reference(qkv.double(), bias.double(), table.double(), heads, 12, shift)
+            err, plain_err = float((got - exact).abs().max()), float((want - exact).abs().max())
+            if err > plain_err + 2.0 ** -8 * float(exact.abs().max()):
+                raise RuntimeError(f"window_attention at {h}x{w}, shift {shift}: {err} against the plain {plain_err}")
+            # the yardstick's inputs: the windows and one float bias + mask
+            hp, wp = -(-h // 12) * 12, -(-w // 12) * 12
+            x = bias.expand(1, hp, wp, 3 * c).clone()
+            x[:, :h, :w] = qkv
+            x = torch.roll(x, shifts=(-shift, -shift), dims=(1, 2)) if shift else x
+            q, k, v = op.partition(x, 12).view(-1, 144, 3, heads, 32).permute(2, 0, 3, 1, 4).contiguous()
+            rel = table[op.relative_position_index(12, DEVICE).view(-1)].view(144, 144, heads).permute(2, 0, 1)
+            mask = rel[None] + (op.shift_mask(hp, wp, 12, shift, DEVICE)[:, None].bfloat16() if shift else 0)
+            mask = mask.expand(q.shape[0], heads, 144, 144).contiguous()
+            work_bytes, work_ops = 2.0 * h * w * 4 * c, 2.0 * 2 * h * w * 144 * c
+            row = {
+                "grid": [h, w], "channels": c, "heads": heads, "shift": shift, "max_abs_err": err,
+                "plain_max_abs_err": plain_err,
+                "ms": time_cuda_ms(lambda: op.window_attention(qkv, bias, table, heads, 12, shift), 50),
+                "plain_ms": time_cuda_ms(lambda: op.window_attention_reference(qkv, bias, table, heads, 12, shift), 5),
+                "library_ms": time_cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 20),
+                "bound_ms": 1e3 * max(work_bytes / HBM_BYTES_PER_S, work_ops / BF16_FLOP_PER_S),
+                "bound_by": "bytes" if work_bytes / HBM_BYTES_PER_S >= work_ops / BF16_FLOP_PER_S else "operations",
+            }
+            rows.append(row)
+            for key in frame:
+                frame[key] += blocks / 2 * row[key]
+    return {"stages": rows, "frame": frame}
+
+
+def phase_swin() -> dict:
+    """Mask2Former-Swin-L as the perceiver's segmenter at 1280x736 bf16:
+    the window-attention kernel alone at the four stages' shapes, the
+    captured pipeline against eager and its launches a frame, the gaps
+    against the plain reference and its float8 control, the frame's
+    times, its kernels and its spans."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from acmpc_tpu_torch.bench import perception_loop as loop
+    from acmpc_tpu_torch.ops import ms_deform_attn as deform
+    from acmpc_tpu_torch.ops import window_attention as op
+    from acmpc_tpu_torch.ops.graph_loop import settle_launches
+    from acmpc_tpu_torch.ops.jpeg_round_trip import jpeg_round_trip_reference
+    from acmpc_tpu_torch.perception.perceiver import Perceiver
+    from acmpc_tpu_torch.perception.tracks import TRACK_KEYS
+    from acmpc_tpu_torch.utils.monitor import MONITOR
+    from perfbench.drivers.perceive import asphalt
+    from perfbench.metrics._peaks import BF16_FLOP_PER_S
+    from perfbench.metrics._swin_flops import swin_flops
+    from perfbench.reference.swin import Mask2Former, fit_heads, random_state
+
+    t_phase = time.perf_counter()
+    limits = json.loads((ROOT / "perfbench" / "traffic" / "perceive_swin_b1.json").read_text())
+    shape = json.loads((ROOT / "perfbench" / "configs" / "monza_racing_mask2former_swin_l.json").read_text())
+    info: dict = {"torch": torch.__version__, "kernel": _window_kernel()}
+    emit("phase 21 swin kernel", info["kernel"])
+    cfg = dataclasses.replace(loop.perception_config(precision="bf16"), architecture="mask2former_swin_l",
+                              model_path=None)
+    centre, left, right, _ = loop.circuit()
+    host, _ = loop.sim_frames(loop.make_sim(cfg, centre, left, right), centre, SWIN_FRAMES)
+    frames = [torch.as_tensor(f, device=DEVICE) for f in host]
+    fit = [jpeg_round_trip_reference(f).cpu().numpy() for f in frames[:2]]
+    variables = fit_heads(random_state(SWIN_SEED, shape), shape, fit, [asphalt(i) for i in fit], DEVICE)
+    perc = Perceiver(cfg, variables, device=DEVICE, keep_logits=True)
+
+    # (a) the captured pipeline against eager; the kernels' launches a frame
+    mismatches, captured = [], []
+    for i, frame in enumerate(frames):
+        eager, graph = perc._run_pipeline(jpeg_round_trip_reference(frame)), perc._raw_pipeline(frame)
+        pairs = {"drivable": (eager[0], graph[0]), "semantics": (eager[1], graph[1]),
+                 **{f"logits{j}": ab for j, ab in enumerate(zip(eager.logits, graph.logits))},
+                 **{k: (eager[2][k], graph[2][k]) for k in TRACK_KEYS}}
+        mismatches += [f"frame {i}: {k}" for k, (a, b) in pairs.items() if not torch.equal(a, b)]
+        captured.append(graph.logits)
+    info["graph_vs_eager"] = {"frames": len(frames), "bit_equal": not mismatches, "mismatches": mismatches[:10]}
+    if mismatches:
+        raise RuntimeError(f"Mask2Former-Swin-L's captured pipeline differs from eager: {mismatches[:10]}")
+    settle_launches()
+    op.window_attention.launches.clear()
+    deform.ms_deform_attn.launches.clear()
+    for frame in frames:
+        perc._raw_pipeline(frame)
+    settle_launches()
+    info["launches_per_frame"] = {"window_attention": op.window_attention.launches[op.KERNEL] / len(frames),
+                                  "ms_deform_attn": deform.ms_deform_attn.launches[deform.KERNEL] / len(frames)}
+    if info["launches_per_frame"] != {"window_attention": 24, "ms_deform_attn": 6}:
+        raise RuntimeError(f"Mask2Former-Swin-L's launches a frame: {info['launches_per_frame']}")
+
+    # (b) against the plain reference fed the program's masks, and its
+    # float8 control
+    ref, low = Mask2Former(variables, shape, DEVICE), Mask2Former(variables, shape, DEVICE, fp8=True)
+
+    def gap(got, want):
+        return float((got.double() - want.double()).abs().max() / want.abs().max())
+
+    names = ("class", "mask_logit", "encoder", "backbone")
+    gaps: dict = {k: [] for k in names + tuple(f"fp8_{n}" for n in names)}
+    for frame, (cls, mask, memory, *rest) in zip(frames, captured):
+        masks, feats = [m[0] for m in rest[:-4]], rest[-4:]
+        image = jpeg_round_trip_reference(frame)
+        want, lw = ref.forward(image, masks), low.forward(image, masks)
+        for name, key, got in (("class", "class_logits", cls[0]), ("mask_logit", "mask_logits", mask[0]),
+                               ("encoder", "memory", memory[0])):
+            gaps[name].append(gap(got, want[key]))
+            gaps[f"fp8_{name}"].append(gap(lw[key], want[key]))
+        maps, low_maps = ref.backbone_maps(image), low.backbone_maps(image)
+        gaps["backbone"].append(max(gap(f[0], m) for f, m in zip(feats, maps)))
+        gaps["fp8_backbone"].append(max(gap(a, m) for a, m in zip(low_maps, maps)))
+    info["reference"] = {"gaps": gaps, "limits": {k: limits[f"{k}_gap_limit"] for k in names}}
+    sound = all(max(gaps[k]) <= limits[f"{k}_gap_limit"] for k in names)
+    control = any(min(gaps[f"fp8_{k}"]) > limits[f"{k}_gap_limit"] for k in names)
+    emit("phase 21 swin reference", info["reference"])
+    if not sound or not control:
+        raise RuntimeError(f"Mask2Former-Swin-L against the reference: {info['reference']}")
+
+    # (c) a frame's times: perceive (host frame in, tracks to the host), the
+    # captured pipeline
+    def perceive(i=[0]):
+        i[0] += 1
+        out = perc.perceive(host[i[0] % len(host)])
+        return [out[k].cpu() for k in ("left", "right", "centreline")]
+
+    walls = []
+    for _ in range(SWIN_TIMED):
+        t0 = time.perf_counter()
+        perceive()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    info["perceive_ms"] = {"p50": float(np.percentile(walls, 50)), "p95": float(np.percentile(walls, 95))}
+    info["captured_pipeline_ms"] = time_cuda_ms(lambda: perc._raw_pipeline(frames[0]), SWIN_TIMED)
+
+    # (d) the kernels of captured frames, by device time a frame
+    n_prof = 10
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            perc._raw_pipeline(frames[0])
+        torch.cuda.synchronize()
+    table: dict = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            row = table.setdefault(evt.name, [0.0, 0])
+            row[0] += (evt.time_range.end - evt.time_range.start) * 1e-3 / n_prof
+            row[1] += 1
+    top = sorted(table.items(), key=lambda kv: -kv[1][0])
+    info["kernels_per_frame"] = [[name[:140], ms, n // n_prof] for name, (ms, n) in top[:20]]
+    info["device_ms_per_frame"] = sum(ms for ms, _ in table.values())
+    work = swin_flops(cfg.image_height, cfg.image_width, shape)
+    window_ms = sum(row[0] for name, row in table.items() if op.KERNEL in name)
+    least_ms = 1e3 * max(work["attention"] / BF16_FLOP_PER_S, work["attention_bytes"] / HBM_BYTES_PER_S)
+    info["window_attention"] = {"ms_per_frame": window_ms, "least_ms": least_ms,
+                                "roofline_pct": 100.0 * least_ms / window_ms if window_ms else None}
+    if not window_ms:
+        raise RuntimeError(f"no kernel named {op.KERNEL} ran: {list(table)[:20]}")
+    info["frame_gflop"] = work["total"] / 1e9
+    info["mfu_pct_captured"] = 100.0 * work["total"] / BF16_FLOP_PER_S / (info["captured_pipeline_ms"] * 1e-3)
+
+    # (e) the spans, with the monitor on (a graph of its own)
+    MONITOR.enable()
+    try:
+        for i in range(3):  # the monitor's own capture, then replays
+            perc.perceive(host[i])
+        torch.cuda.synchronize()
+        MONITOR.clear()
+        for i in range(3):
+            perc.perceive(host[i])
+        torch.cuda.synchronize()
+        taken = MONITOR.take()
+    finally:
+        MONITOR.disable()
+        MONITOR.clear()
+    samples = collections.Counter(name for name, _, _ in taken["device"])
+    device_ms: dict = collections.defaultdict(float)
+    for name, _, ms in taken["device"]:
+        device_ms[name] += ms / max(samples["swin.stage1"], 1)
+    want_spans = ["mask2former.backbone", *(f"swin.stage{i}" for i in range(1, 5)), "swin.window_attention"]
+    info["spans"] = {"samples": {k: samples[k] for k in want_spans},
+                     "device_ms_per_frame": {k: device_ms[k] for k in want_spans + ["perceiver.segment"]}}
+    if samples["swin.window_attention"] != 24 * samples["swin.stage1"] or not all(samples[k] for k in want_spans):
+        raise RuntimeError(f"Mask2Former-Swin-L's spans: {info['spans']}")
+    info["phase_s"] = time.perf_counter() - t_phase
+    info["card"] = card_line()
+    emit("phase 21 swin", info)
+    return info
+
+
 def phase_segformer_resample() -> dict:
     """SegFormer's head resample: the kernel against its plain version at
     both frames, both batches and both dtypes; its times; in the SegFormer
@@ -3496,7 +3727,7 @@ def phase_segformer_resample() -> dict:
 def kernels_line(
     kernel: dict, main: dict, mapping: dict, sweep: dict, multi: dict, perception: dict, agent: dict,
     tools: dict, parallel: dict, vmapped: dict, training: dict, compiled: dict, segformer: dict,
-    mask2former: dict, resample: dict,
+    mask2former: dict, resample: dict, swin: dict,
 ) -> dict:
     """One row per kernel variant: launches summed over the paths
     (phases 4, 6, 8-10 and 12-17; phase 5 and 7 are single-scenario
@@ -3684,6 +3915,24 @@ def kernels_line(
                 "bound_by": "bytes",
                 "library_ms": resample["timed"]["plain_ms"],
             },
+            {
+                # Swin's window attention, which no TPU kernel computed:
+                # phase 21, a frame's 24 blocks at Swin-L's stage shapes
+                # timed alone; launches over phase 21's frames; the
+                # library's yardstick SDPA on windows partitioned
+                # beforehand with one float bias + mask
+                "name": "window_attention",
+                "route": "cuda",
+                "source": "acmpc_tpu_torch/csrc/window_attention.cu",
+                "replaces": None,
+                "launches": swin["launches_per_frame"]["window_attention"] * SWIN_FRAMES,
+                "max_abs_err": max(r["max_abs_err"] for r in swin["kernel"]["stages"]),
+                "ms": swin["kernel"]["frame"]["ms"],
+                "plain_ms": swin["kernel"]["frame"]["plain_ms"],
+                "bound_ms": swin["kernel"]["frame"]["bound_ms"],
+                "bound_by": "bytes",
+                "library_ms": swin["kernel"]["frame"]["library_ms"],
+            },
         ]
     }
 
@@ -3718,9 +3967,10 @@ def main() -> int:
     segformer = phase_segformer()
     mask2former = phase_mask2former()
     resample = phase_segformer_resample()
+    swin = phase_swin()
     print(json.dumps(kernels_line(
         kernel, main_info, mapping, sweep, multi, perception, agent, tools, parallel, vmapped, training,
-        compiled, segformer, mask2former, resample,
+        compiled, segformer, mask2former, resample, swin,
     )))
     print(card_line())
     print(json.dumps({

@@ -1839,6 +1839,154 @@ def test_mask2former_matches_the_reference_on_card(cuda_device):
     assert gap(memory[0], want["memory"]) <= limits["encoder_gap_limit"]
 
 
+# -- Swin's shifted-window attention (ops/window_attention.py, models/swin.py)
+
+# Swin-L's four stages at 1280x736 (grid, channels, heads), window 12, and
+# a window of 7 on grids that pad
+SWIN_L_STAGES = [((184, 320), 192, 6), ((92, 160), 384, 12), ((46, 80), 768, 24), ((23, 40), 1536, 48)]
+WINDOW_CASES = [(grid, c, h, 12, shift) for grid, c, h in SWIN_L_STAGES for shift in (0, 6)] + [
+    ((40, 56), 64, 2, 7, shift) for shift in (0, 3)] + [((9, 16), 128, 4, 7, 3)]
+
+
+def _window_inputs(grid, c, heads, window, dtype, device, seed=5):
+    """qkv of N(0, 2^2) (scores of a few units: a peaked softmax), a bias
+    and a table of N(0, 1)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    qkv = 2.0 * torch.randn((1, *grid, 3 * c), device=device, generator=g)
+    bias = torch.randn(3 * c, device=device, generator=g)
+    table = torch.randn(((2 * window - 1) ** 2, heads), device=device, generator=g)
+    return qkv.to(dtype), bias.to(dtype), table.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", WINDOW_CASES, ids=[f"{g[0]}x{g[1]}_c{c}_w{w}_s{s}" for g, c, _, w, s in WINDOW_CASES])
+def test_window_attention_kernel_matches_the_plain_version_on_card(cuda_device, case, dtype):
+    # bf16: the kernel keeps the scores and the softmax in float32 where
+    # the plain composition rounds q / sqrt(32), the scores, the bias's
+    # sum and the probabilities to bf16; both round P to bf16 for P V. So
+    # against the exact attention (float64 of the same inputs) the kernel
+    # is no further than the plain version, up to one rounding of the
+    # output (2^-8 of the largest). float32: the same sums in another
+    # order: 1e-5 of the largest output
+    from acmpc_tpu_torch.ops import window_attention as op
+
+    grid, c, heads, window, shift = case
+    qkv, bias, table = _window_inputs(grid, c, heads, window, dtype, cuda_device)
+    name = op.KERNEL if dtype == torch.bfloat16 else op.KERNEL_F32
+    before = op.window_attention.launches[name]
+    got = op.window_attention(qkv, bias, table, heads, window, shift)
+    torch.cuda.synchronize()
+    assert op.window_attention.launches[name] == before + 1
+    want = op.window_attention_reference(qkv, bias, table, heads, window, shift)
+    assert got.shape == want.shape == (1, *grid, c) and got.dtype == dtype
+    exact = op.window_attention_reference(qkv.double(), bias.double(), table.double(), heads, window, shift)
+    scale = float(exact.abs().max())
+    if dtype == torch.bfloat16:
+        kernel_err = float((got.double() - exact).abs().max())
+        plain_err = float((want.double() - exact).abs().max())
+        assert kernel_err <= plain_err + 2.0 ** -8 * scale, (kernel_err, plain_err, scale)
+    else:
+        assert float((got.double() - want.double()).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_window_attention_wrapper_refuses_what_the_kernel_does_not_take_on_card(cuda_device):
+    from acmpc_tpu_torch.ops import window_attention as op
+
+    qkv, bias, table = _window_inputs((23, 40), 192, 6, 12, torch.bfloat16, cuda_device)
+    before = sum(op.window_attention.launches.values())
+    with pytest.raises(ValueError, match="heads of 32"):
+        op.window_attention(qkv, bias, table[:, :3], 3, 12, 0)  # heads of 64
+    with pytest.raises(ValueError, match="windows up to 12"):
+        op.window_attention(qkv, bias, torch.zeros((25 * 25, 6), dtype=qkv.dtype, device=cuda_device), 6, 13, 0)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        op.window_attention(qkv.half(), bias.half(), table.half(), 6, 12, 6)
+    assert sum(op.window_attention.launches.values()) == before
+
+
+@pytest.mark.cuda
+def test_swin_counts_one_launch_a_block_on_card(cuda_device):
+    from acmpc_tpu_torch.models import swin as S
+    from acmpc_tpu_torch.ops import window_attention as op
+
+    cfg = S.SwinConfig(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8), window_size=7)
+    model = S.SwinTransformer(cfg).to(cuda_device, torch.bfloat16, memory_format=torch.channels_last).eval()
+    x = torch.randn((1, 3, 160, 224), device=cuda_device).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    before = op.window_attention.launches[op.KERNEL]
+    with torch.no_grad():
+        feats = model(x)
+    torch.cuda.synchronize()
+    assert op.window_attention.launches[op.KERNEL] == before + 8
+    assert [tuple(f.shape) for f in feats] == [(1, 32, 40, 56), (1, 64, 20, 28), (1, 128, 10, 14), (1, 256, 5, 7)]
+
+
+def _swin_perceiver(device):
+    import json
+
+    from acmpc_tpu_torch.bench import perception_loop as loop
+    from acmpc_tpu_torch.ops.jpeg_round_trip import jpeg_round_trip_reference
+    from acmpc_tpu_torch.perception.perceiver import Perceiver
+    from perfbench.drivers.perceive import asphalt
+    from perfbench.reference.swin import fit_heads, random_state
+
+    shape = json.loads((ROOT / "perfbench" / "configs" / "monza_racing_mask2former_swin_l.json").read_text())
+    cfg = dataclasses.replace(loop.perception_config(precision="bf16"), architecture="mask2former_swin_l",
+                              model_path=None)
+    centre, left, right, _ = loop.circuit()
+    host, _ = loop.sim_frames(loop.make_sim(cfg, centre, left, right), centre, 3)
+    frames = [torch.as_tensor(f, device=device) for f in host]
+    fit = [jpeg_round_trip_reference(f).cpu().numpy() for f in frames[:2]]
+    variables = fit_heads(random_state(2**31 + 26, shape), shape, fit, [asphalt(i) for i in fit], device)
+    return shape, variables, frames, Perceiver(cfg, variables, device=device, keep_logits=True)
+
+
+@pytest.mark.cuda
+def test_mask2former_swin_graph_and_reference_on_card(cuda_device):
+    # the captured pipeline bit-equal to eager, 24 window-attention and 6
+    # deformable launches a replay; 1280x736 in bf16 against the plain
+    # float32 reference on the frame's round trip, fed the program's
+    # attention masks, within the benchmark cell's limits (PERF.md: the
+    # readings they were set from)
+    import json
+
+    from acmpc_tpu_torch.ops import ms_deform_attn as deform
+    from acmpc_tpu_torch.ops import window_attention as op
+    from acmpc_tpu_torch.ops.jpeg_round_trip import jpeg_round_trip_reference
+    from perfbench.reference.swin import Mask2Former
+
+    limits = json.loads((ROOT / "perfbench" / "traffic" / "perceive_swin_b1.json").read_text())
+    shape, variables, frames, perc = _swin_perceiver(cuda_device)
+    eager = perc._run_pipeline(jpeg_round_trip_reference(frames[2]))
+    for _ in range(3):  # the capture, then two replays
+        graph = perc._raw_pipeline(frames[2])
+    assert len(graph.logits) == len(eager.logits) == 3 + 9 + 4
+    assert all(torch.equal(a, b) for a, b in zip(graph.logits, eager.logits))
+    assert torch.equal(graph[0], eager[0]) and torch.equal(graph[1], eager[1])
+    settle_launches()
+    op.window_attention.launches.clear()
+    deform.ms_deform_attn.launches.clear()
+    for _ in range(2):
+        perc._raw_pipeline(frames[1])
+    settle_launches()
+    assert op.window_attention.launches[op.KERNEL] == 24 * 2
+    assert deform.ms_deform_attn.launches[deform.KERNEL] == 6 * 2
+    cls, mask, memory, *rest = graph.logits
+    masks, feats = rest[:9], rest[9:]
+    ref = Mask2Former(variables, shape, cuda_device)
+    image = jpeg_round_trip_reference(frames[2])
+    want = ref.forward(image, [m[0] for m in masks])
+
+    def gap(got, reference):
+        return float((got.double() - reference.double()).abs().max() / reference.abs().max())
+
+    assert gap(cls[0], want["class_logits"]) <= limits["class_gap_limit"]
+    assert gap(mask[0], want["mask_logits"]) <= limits["mask_logit_gap_limit"]
+    assert gap(memory[0], want["memory"]) <= limits["encoder_gap_limit"]
+    assert max(gap(f[0], r) for f, r in zip(feats, ref.backbone_maps(image))) <= limits["backbone_gap_limit"]
+
+
 # -- Ruiz equilibration (ops/ruiz.py) -----------------------------------------
 
 # the kernel against the plain version: every product, square root and

@@ -325,7 +325,7 @@ def test_segmenter_saves_and_loads_its_weights(tmp_path, monkeypatch):
 
 
 def test_every_architecture_has_one_entry():
-    assert set(ENTRIES) == {"fpn_resnet18", "segformer_b2", "mask2former_r50"}
+    assert set(ENTRIES) == {"fpn_resnet18", "segformer_b2", "mask2former_r50", "mask2former_swin_l"}
     assert all(callable(getattr(e, f.name)) for e in ENTRIES.values() for f in dataclasses.fields(e))
 
 

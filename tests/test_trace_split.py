@@ -176,3 +176,27 @@ def test_layer_numbers_of_mask2former_spans():
         "mask2former_deform_attn <= mask2former_pixel_decoder": pytest.approx((1.5, 4.0)),
         "mask2former_masked_attention <= mask2former_decoder": pytest.approx((0.9, 2.0)),
     }
+
+
+def test_layer_numbers_of_swin_spans():
+    # two frames: Swin-L's four stages and its 24 window attentions (one a
+    # block) under Mask2Former's backbone span
+    device = []
+    for request in (1, 2):
+        device += [("perceiver.segment", request, 12.0), ("mask2former.backbone", request, 5.0),
+                   ("mask2former.pixel_decoder", request, 4.0), ("mask2former.decoder", request, 2.0),
+                   ("mask2former.semantic", request, 0.5)]
+        device += [(f"swin.stage{i}", request, ms) for i, ms in ((1, 1.0), (2, 0.5), (3, 2.5), (4, 0.25))]
+        device += [("swin.window_attention", request, 0.02)] * 24
+    program = trace_split.per_request(_taken([], device, {"segmenter.forward:mask2former_swin_l": 2}), 2)
+    got = trace_split.layer_numbers(program, 1)
+    assert {k: v for k, v in got.items() if k.startswith("swin")} == pytest.approx({
+        "swin_stage1_device_ms": 1.0, "swin_stage2_device_ms": 0.5, "swin_stage3_device_ms": 2.5,
+        "swin_stage4_device_ms": 0.25, "swin_window_attention_device_ms": 0.48})
+    sums = trace_split.bounding_sums(got, {}, [0.015])
+    assert sums["swin stages <= mask2former_backbone"] == pytest.approx((4.25, 5.0))
+    assert sums["mask2former stages <= segment_device_ms"] == pytest.approx((11.5, 12.0))
+    # a stage without samples leaves the stages' sum out
+    del program["spans"]["swin.stage4"]
+    assert "swin stages <= mask2former_backbone" not in trace_split.bounding_sums(
+        trace_split.layer_numbers(program, 1), {}, [0.015])

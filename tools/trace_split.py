@@ -90,7 +90,9 @@ def layer_numbers(program: dict, batch: int) -> dict:
     whose spans (or, for a device number, their samples) were not
     recorded is left out. SegFormer's attention is the sum of its blocks'
     samples (16 a frame at B2's depths); Mask2Former's deformable and
-    masked attention the sums of their layers' (6 and 9 a frame)."""
+    masked attention the sums of their layers' (6 and 9 a frame); Swin's
+    window attention the sum of its blocks' (24 a frame at Swin-L's
+    depths)."""
     spans = program["spans"]
 
     def total(kind, *names):
@@ -109,6 +111,8 @@ def layer_numbers(program: dict, batch: int) -> dict:
         "segformer_attention_device_ms": total("device_ms", "segformer.attention"),
         **{f"mask2former_{k}_device_ms": total("device_ms", f"mask2former.{k}")
            for k in ("backbone", "pixel_decoder", "deform_attn", "decoder", "masked_attention", "semantic")},
+        **{f"swin_stage{i}_device_ms": total("device_ms", f"swin.stage{i}") for i in range(1, 5)},
+        "swin_window_attention_device_ms": total("device_ms", "swin.window_attention"),
         "graph_io_ms" + b: total("host_ms", "graph.inputs", "graph.outputs"),
         "prepare_device_ms" + b: total("device_ms", "mpc.prepare"),
         "factor_device_ms" + b: total("device_ms", "qp.factor"),
@@ -126,8 +130,8 @@ def bounding_sums(numbers: dict, bench_spans: dict, latencies_s: list) -> dict:
     perception time, the three device numbers of a B = 1 step inside its
     control time, SegFormer's stages and head, and Mask2Former's four
     stages, inside the segmenter's device time, Mask2Former's attention
-    layers inside their stages, the four of the B = 256 step inside its
-    wall."""
+    layers inside their stages, Swin's four stages inside Mask2Former's
+    backbone, the four of the B = 256 step inside its wall."""
     mean_ms = lambda xs: 1e3 * statistics.fmean(xs)  # noqa: E731
     out = {}
     if "jpeg_ms" in numbers and "perception" in bench_spans:
@@ -146,6 +150,9 @@ def bounding_sums(numbers: dict, bench_spans: dict, latencies_s: list) -> dict:
         pair = numbers.get(f"mask2former_{inner}_device_ms"), numbers.get(f"mask2former_{outer}_device_ms")
         if None not in pair:
             out[f"mask2former_{inner} <= mask2former_{outer}"] = pair
+    swin = [numbers.get(f"swin_stage{i}_device_ms") for i in range(1, 5)]
+    if None not in swin and "mask2former_backbone_device_ms" in numbers:
+        out["swin stages <= mask2former_backbone"] = (sum(swin), numbers["mask2former_backbone_device_ms"])
     sweep = [numbers.get(f"{k}_device_ms.b256") for k in ("prepare", "factor", "iterate", "lap")]
     if None not in sweep:
         out["b256 device <= step wall"] = (sum(sweep), mean_ms(latencies_s))
